@@ -1,0 +1,170 @@
+"""Convergent Cross Mapping — the library-batched all-pairs engine.
+
+Directionality convention (as in ``repro.core.ccm``): to ask whether
+``target`` causally forces ``lib``, embed the *library* series, find its
+neighbours, and cross-map the *target*.
+
+Main-path subset of the reference module: ``ccm_group_batched`` cuts the
+library axis into ceil(Nl/B) batches, each one launch of
+``ops.all_knn_batch`` followed by the weights + fused-ρ stage
+(``post_lookup_rho``), double-buffered against host assembly by
+``drive_batched``. Results are bit-invariant in B.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.core.embedding import embed_offset, num_embedded, pred_rows
+from repro_torch.kernels import ops
+
+#: Default memory budgets (MB) for the library-batched engine's in-flight
+#: (B, Lp, Lp) float32 distance stack of the plain path (the CUDA kernels
+#: never hold it). A device with its own memory wants launches big enough
+#: to amortize dispatch; on the CPU the stack competes with the cache.
+DEFAULT_BATCH_BUDGET_MB = 256
+DEFAULT_BATCH_BUDGET_MB_CPU = 32
+
+
+def _default_budget_mb(device: torch.device | str) -> int:
+    return (DEFAULT_BATCH_BUDGET_MB_CPU if torch.device(device).type == "cpu"
+            else DEFAULT_BATCH_BUDGET_MB)
+
+
+def auto_batch_libs(Lp: int, Nl: int, budget_mb: float | None = None, *,
+                    device: torch.device | str = "cpu",
+                    per_series_bytes: int | None = None) -> int:
+    """Library batch size B with B·per-series bytes under the budget.
+
+    Per-series bytes default to one (Lp, Lp) float32 distance matrix.
+    Under the cap the launches are equalized — B = ceil(Nl / nb) for the
+    smallest launch count nb the cap allows — because a ragged final
+    launch is padded to a full B.
+    """
+    budget = _default_budget_mb(device) if budget_mb is None else budget_mb
+    per = 4 * Lp * Lp if per_series_bytes is None else max(
+        1, int(per_series_bytes))
+    Nl = max(Nl, 1)
+    cap = max(1, min(Nl, int(budget * 2**20) // per))
+    nb = -(-Nl // cap)
+    return -(-Nl // nb)
+
+
+def post_lookup_rho(targets, d, i, *, rows, off, impl):
+    """Weights + fused-ρ stage of every batched matrix engine → (B, Nt).
+
+    (d, i) are (B, Lp, k) neighbour tables. Weights are elementwise with
+    a fixed-order k-sum and each lookup-ρ row depends on its table alone,
+    so every row equals the B = 1 result (batch invariance).
+    """
+    w = ops.make_weights(d)
+    return ops.lookup_rho(targets, i[:, :rows], w[:, :rows], offset=off,
+                          impl=impl)
+
+
+def _group_step(libs, targets, *, E, tau, Tp, k, impl):
+    """One engine launch: distance→top-k→weights→ρ for B libraries."""
+    L = libs.shape[-1]
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    hard_max = num_embedded(L, E, tau) - 1 - max(Tp, 0)
+    d, i = ops.all_knn_batch(libs, E=E, tau=tau, k=k, exclude_self=True,
+                             max_idx=hard_max, impl=impl)
+    return post_lookup_rho(targets, d, i, rows=rows, off=off, impl=impl)
+
+
+def pad_batch(chunk: torch.Tensor, B: int) -> torch.Tensor:
+    """Pad a ragged final batch to B rows by repeating the last series.
+
+    Real data, so the engine needs no masking; ``drive_batched`` drops the
+    padded rows at assembly.
+    """
+    n = chunk.shape[0]
+    if n == B:
+        return chunk
+    return torch.cat([chunk, chunk[-1:].expand(B - n, *chunk.shape[1:])])
+
+
+def drive_batched(Nl: int, B: int, launch) -> np.ndarray:
+    """Double-buffered host loop over ceil(Nl/B) engine launches.
+
+    ``launch(a, b, B)`` enqueues rows [a, b) (padded to B) and returns the
+    device result before it is computed (CUDA launches are asynchronous),
+    so while the host copies batch i's block (``.cpu()``, the sync point)
+    the device already runs batch i+1. At most two launches are in
+    flight.
+    """
+    out = pending = None
+    lat_hist = telemetry.histogram("edm_launch_latency_seconds")
+    pairs = telemetry.counter("edm_pairs_total")
+    launches = telemetry.counter("edm_launches")
+
+    def land(pending):
+        nonlocal out
+        (pa, pb), arr, t_disp = pending
+        t_land = time.perf_counter()
+        block = arr.cpu().numpy()       # the device sync point
+        t_done = time.perf_counter()
+        if out is None:
+            out = np.empty((Nl,) + block.shape[1:], block.dtype)
+        out[pa:pb] = block[: pb - pa]
+        lat_hist.observe(t_done - t_disp)
+        pairs.inc(int(block[: pb - pa].size))
+        if telemetry.active():
+            telemetry.event("engine.tile", a=pa, b=pb,
+                            latency_s=t_done - t_disp,
+                            sync_s=t_done - t_land)
+
+    with telemetry.span("engine.drive", Nl=Nl, B=B):
+        for a in range(0, Nl, B):
+            launches.inc()
+            cur = launch(a, min(a + B, Nl), B)
+            if pending is not None:
+                land(pending)
+            pending = ((a, min(a + B, Nl)), cur, time.perf_counter())
+        land(pending)
+    return out
+
+
+def make_group_launch(libs, targets, *, E, tau, Tp, k, impl):
+    """Launch closure of the direct batched engine: ``launch(a, b, B)``."""
+    ops.check_impl(impl)
+    group_launches = telemetry.counter("edm_group_launches")
+
+    def launch(a, b, B):
+        group_launches.inc()
+        return _group_step(pad_batch(libs[a:b], B), targets, E=E, tau=tau,
+                           Tp=Tp, k=k, impl=impl)
+
+    return launch
+
+
+def ccm_group_batched(libs: torch.Tensor, targets: torch.Tensor, *, E: int,
+                      tau: int = 1, Tp: int = 0, k: int | None = None,
+                      impl: str = "auto", batch_libs: int | None = None,
+                      budget_mb: float | None = None) -> np.ndarray:
+    """Library-batched CCM block → (Nl, Nt) ρ (host ndarray).
+
+    The library axis is cut into ceil(Nl/B) batches of B series
+    (``batch_libs``, or ``auto_batch_libs``'s memory rule), each one
+    launch of the kNN kernel plus the fused-ρ stage, double-buffered
+    against host assembly. Results are bit-invariant in B.
+    """
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    Nl = libs.shape[0]
+    Lp = num_embedded(libs.shape[-1], E, tau)
+    if Nl == 0:
+        return np.zeros((0, targets.shape[0]), np.float32)
+    B = batch_libs if batch_libs is not None else auto_batch_libs(
+        Lp, Nl, budget_mb, device=libs.device)
+    B = max(1, min(int(B), Nl))
+    telemetry.gauge("edm_batch_libs_effective").set(B)
+    kk = E + 1 if k is None else int(k)
+    launch = make_group_launch(libs, targets, E=E, tau=tau, Tp=Tp, k=kk,
+                               impl=impl)
+    return drive_batched(Nl, B, launch)

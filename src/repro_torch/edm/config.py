@@ -1,0 +1,142 @@
+"""``EDMConfig`` — one frozen, validated home for the EDM hyperparameters.
+
+Mirrors ``repro.edm.config`` for the fields the port's session uses, plus
+``device``. ``__post_init__`` checks what is knowable without data;
+``validate_panel`` checks the config against a concrete (N, L) panel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.core.embedding import num_embedded, pred_rows
+from repro_torch.kernels import ops
+
+#: Default S-Map θ grid (the reference's ``core.smap_engine.DEFAULT_THETAS``).
+DEFAULT_THETAS = (0.0, 0.1, 0.3, 0.5, 1.0, 2.0, 4.0, 8.0)
+
+#: Accepted ``on_invalid`` panel policies (see ``edm.dataset``).
+INVALID_POLICIES = ("raise", "mask", "drop")
+
+
+@dataclasses.dataclass(frozen=True)
+class EDMConfig:
+    """Frozen EDM session configuration.
+
+    E:        fixed embedding dimension; ``None`` means per-series optimal
+              E (the session sweeps 1..E_max and caches it).
+    E_max:    upper bound of the optimal-E sweep.
+    tau:      time-delay lag.
+    Tp:       forecast horizon of simplex / optimal-E.
+    Tp_cross: cross-map horizon of ccm / xmap (kEDM uses 0).
+    theta, thetas, ridge: S-Map locality, θ grid and ridge strength
+              (S-Map is not ported yet; kept so configs read alike).
+    k:        neighbour count; ``None`` means the simplex default E + 1.
+    extra_slack: kNN-master columns beyond the horizon minimum.
+    batch_libs: library batch size B of the all-pairs engine; ``None``
+              sizes it to ``batch_budget_mb``. Results are bit-invariant
+              in B.
+    batch_budget_mb: memory budget (MB) of that rule; ``None`` picks the
+              device default (32 on the CPU, 256 on the GPU).
+    impl:     "auto" (kernels on CUDA tensors, plain versions on the CPU)
+              or "ref" (plain versions everywhere).
+    device:   torch device of the session's tensors. "cuda" (default)
+              raises at bind time when CUDA is absent; nothing falls back
+              to the CPU unless ``device="cpu"`` is asked for.
+    mesh:     sharded placement — not ported yet (must stay ``None``).
+    cache:    hold the kNN master / E_opt in the session for reuse.
+    on_invalid: NaN/Inf/constant-series policy ("raise" | "mask" |
+              "drop", see ``edm.dataset.Dataset``).
+    """
+
+    E: int | None = None
+    E_max: int = 20
+    tau: int = 1
+    Tp: int = 1
+    Tp_cross: int = 0
+    theta: float = 1.0
+    thetas: tuple[float, ...] = DEFAULT_THETAS
+    k: int | None = None
+    extra_slack: int = 0
+    batch_libs: int | None = None
+    batch_budget_mb: float | None = None
+    ridge: float = 1e-6
+    impl: str = "auto"
+    device: str = "cuda"
+    mesh: Any = None
+    cache: bool = True
+    on_invalid: str = "raise"
+
+    def __post_init__(self):
+        if self.E is not None and self.E < 1:
+            raise ValueError(f"E must be >= 1, got {self.E}")
+        if self.E_max < 1:
+            raise ValueError(f"E_max must be >= 1, got {self.E_max}")
+        if self.E is not None and self.E > self.E_max:
+            object.__setattr__(self, "E_max", self.E)
+        if self.tau < 1:
+            raise ValueError(f"tau must be >= 1, got {self.tau}")
+        if self.Tp < 0 or self.Tp_cross < 0:
+            raise ValueError(
+                f"horizons must be >= 0, got Tp={self.Tp}, "
+                f"Tp_cross={self.Tp_cross}")
+        if self.theta < 0:
+            raise ValueError(f"theta must be >= 0, got {self.theta}")
+        thetas = tuple(float(t) for t in self.thetas)
+        if not thetas:
+            raise ValueError("thetas grid must not be empty")
+        if any(t < 0 for t in thetas):
+            raise ValueError(f"thetas must all be >= 0, got {thetas}")
+        object.__setattr__(self, "thetas", thetas)
+        if self.k is not None and self.k < 1:
+            raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.extra_slack < 0:
+            raise ValueError(
+                f"extra_slack must be >= 0, got {self.extra_slack}")
+        if self.batch_libs is not None and self.batch_libs < 1:
+            raise ValueError(
+                f"batch_libs must be >= 1, got {self.batch_libs}")
+        if self.batch_budget_mb is not None and self.batch_budget_mb <= 0:
+            raise ValueError(
+                f"batch_budget_mb must be > 0, got {self.batch_budget_mb}")
+        if self.ridge < 0:
+            raise ValueError(f"ridge must be >= 0, got {self.ridge}")
+        ops.check_impl(self.impl)
+        if self.on_invalid not in INVALID_POLICIES:
+            raise ValueError(
+                f"unknown on_invalid policy {self.on_invalid!r}; expected "
+                f"one of {INVALID_POLICIES}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh= (sharded placement) is not ported yet: ROADMAP "
+                "queue 1, item 9 (Sharding)")
+
+    # ------------------------------------------------------------ derived
+
+    def k_for(self, E: int) -> int:
+        """Neighbour count at dimension E (simplex default E + 1)."""
+        return (E + 1) if self.k is None else self.k
+
+    @property
+    def slack(self) -> int:
+        """Extra master columns so every planned ``max_idx`` cap can be
+        applied post hoc: one candidate per horizon step, plus
+        ``extra_slack``."""
+        return max(1, self.Tp, self.Tp_cross) + self.extra_slack
+
+    # --------------------------------------------------------- validation
+
+    def validate_panel(self, N: int, L: int) -> None:
+        """Bind-time checks against a concrete (N, L) panel."""
+        E_chk = self.E if self.E is not None else self.E_max
+        num_embedded(L, E_chk, self.tau)  # raises "series too short"
+        rows = pred_rows(L, E_chk, self.tau, self.Tp)
+        if self.k is not None and self.k > rows:
+            raise ValueError(
+                f"k={self.k} exceeds the {rows} prediction rows of an "
+                f"(L={L}, E={E_chk}, tau={self.tau}, Tp={self.Tp}) panel")
+
+    def replace(self, **changes) -> "EDMConfig":
+        """A copy with ``changes`` applied (and re-validated)."""
+        return dataclasses.replace(self, **changes)

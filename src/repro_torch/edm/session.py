@@ -1,0 +1,488 @@
+"""The ``EDM`` session — one facade over the ported EDM main path.
+
+Bind a panel and a config once::
+
+    sess = EDM(panel)                  # on the GPU (device="cuda")
+    E_opt, rho = sess.optimal_E()      # one multi-E kNN launch, cached
+    skill = sess.simplex()             # read off the cached sweep
+    causal = sess.xmap()               # reuses the SAME kNN master tables
+
+Every method builds a ``Plan`` (``sess.plan(task)`` shows it), then runs
+it. The multi-E kNN master built by ``optimal_E`` is held in the session
+and reused by ``simplex``/``xmap``/``ccm_batch``; a fixed-E session's
+first ``xmap`` takes the direct batched engine instead
+(``core.ccm.make_group_launch``).
+
+Methods of ``repro.edm.EDM`` that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.core.ccm import (auto_batch_libs, drive_batched,
+                                  make_group_launch)
+from repro_torch.core.embedding import num_embedded
+from repro_torch.edm.config import EDMConfig
+from repro_torch.edm.dataset import Dataset
+from repro_torch.edm.plan import (
+    Plan,
+    ccm_group_from_master_batched,
+    make_master_group_launch,
+    master_group_batch_bytes,
+    master_slack_covers,
+    panel_master,
+    rho_curves_from_master,
+    simplex_skill_from_master,
+)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue 1, item {item}")
+
+
+def _e_groups(E_opt, N: int):
+    """Per-series E table → {E: member indices}, kEDM §3.4's grouping."""
+    E_opt = np.broadcast_to(np.asarray(E_opt, np.int32), (N,)).copy()
+    return E_opt, {
+        int(E): np.nonzero(E_opt == E)[0]
+        for E in sorted(collections.Counter(E_opt.tolist()))
+    }
+
+
+def session_device(config: EDMConfig) -> torch.device:
+    """The session's device; raises when it asks for CUDA and none exists."""
+    dev = torch.device(config.device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"EDMConfig(device={config.device!r}) but CUDA is not "
+                f"available; the session does not fall back to the CPU — "
+                f"pass device='cpu' to run the plain versions there")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass
+class PanelResult:
+    """Results of one queued ``submit_panel`` ticket."""
+
+    E_opt: np.ndarray | None = None
+    rho: np.ndarray | None = None          # (N, E_max) optimal-E curves
+    xmap: np.ndarray | None = None         # (N, N) cross-map matrix
+
+
+class EDM:
+    """Session facade: shared kNN state + plan-based dispatch."""
+
+    def __init__(self, data, config: EDMConfig | None = None, **overrides):
+        if config is None:
+            config = EDMConfig(**overrides)
+        elif overrides:
+            config = config.replace(**overrides)
+        self.device = session_device(config)
+        self.data = data if isinstance(data, Dataset) else Dataset(
+            data, on_invalid=config.on_invalid, device=self.device)
+        if self.data.panel.device != self.device:
+            raise ValueError(
+                f"Dataset lives on {self.data.panel.device}, config asks "
+                f"for {self.device}")
+        self.config = config
+        config.validate_panel(self.data.N, self.data.L)
+        self._impl = config.impl
+        self._cache: dict[str, object] = {}
+        self.stats: collections.Counter = collections.Counter()
+        self._queue: list[tuple[int, np.ndarray, tuple[str, ...]]] = []
+        self._next_ticket = 0
+
+    @property
+    def impl_name(self) -> str:
+        """What runs: "cuda" (the kernels) or "ref" (the plain versions)."""
+        return ("ref" if self._impl == "ref" or self.device.type == "cpu"
+                else "cuda")
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        """Session statistic: ``stats`` and the ``edm_<key>`` counter."""
+        self.stats[key] += n
+        telemetry.counter(f"edm_{key}").inc(n)
+
+    def _plan_event(self, task: str) -> None:
+        if telemetry.active():
+            telemetry.event("plan.execute", task=task,
+                            plan=self.plan(task).describe())
+
+    # ---------------------------------------------------- validity masking
+
+    @property
+    def _invalid(self):
+        """Indices of masked-invalid series, or None for clean panels."""
+        if self.data.num_invalid == 0:
+            return None
+        return np.nonzero(~self.data.valid)[0]
+
+    def _mask_rows(self, out: np.ndarray) -> np.ndarray:
+        bad = self._invalid
+        if bad is not None:
+            out = np.array(out, np.float32)
+            out[bad] = np.nan
+        return out
+
+    def _mask_matrix(self, rho: np.ndarray) -> np.ndarray:
+        bad = self._invalid
+        if bad is not None:
+            rho = np.array(rho, np.float32)
+            rho[bad, :] = np.nan
+            rho[:, bad] = np.nan
+        return rho
+
+    def _pair_invalid(self, *indices) -> bool:
+        return any(not self.data.is_valid(i) for i in indices)
+
+    # ------------------------------------------------------------- plans
+
+    def plan(self, task: str, *, E=None) -> Plan:
+        """The Plan a method call would execute (introspection)."""
+        c = self.config
+        cached = c.cache
+        have_master = "master" in self._cache
+        have_rho = "rho" in self._cache
+        impl = self.impl_name
+        if task == "optimal_E":
+            return Plan(
+                task=task, impl=impl, placement="local",
+                E=f"sweep:1..{c.E_max}", Tp=c.Tp,
+                reuse=(("rho",) if have_rho else
+                       ("master",) if (cached and have_master) else ()),
+                builds=() if have_rho else ("master", "rho"),
+                detail="derive per-E tables from kNN master")
+        if task == "simplex":
+            fixed = E or c.E
+            return Plan(
+                task=task, impl=impl, placement="local",
+                E=f"fixed:{fixed}" if fixed else "per-series", Tp=c.Tp,
+                reuse=("master",) if fixed else ("rho",), builds=(),
+                detail=("indices from kNN master, k distances recomputed"
+                        if fixed else "skill read off the cached ρ(E) sweep"))
+        if task == "ccm":
+            return Plan(
+                task=task, impl=impl, placement="local",
+                E=f"fixed:{E or c.E}" if (E or c.E) else "per-series",
+                Tp=c.Tp_cross, reuse=("master",), builds=(),
+                detail="library-batched lookups on cached kNN master")
+        if task == "xmap":
+            hit = self._cache.get("master")
+            levels = (c.E if c.E else
+                      int(self._cache["rho"][0].max()) if have_rho
+                      else c.E_max)
+            covered = hit is not None and hit[3] >= levels
+            master_next = cached and (
+                covered or self.stats["xmap_direct_runs"] > 0
+                or not (c.E or have_rho))
+            return Plan(
+                task=task, impl=impl, placement="local",
+                E=f"fixed:{c.E}" if c.E else "per-series", Tp=c.Tp_cross,
+                reuse=(("master",) if (cached and covered) else ()) + (
+                    () if c.E else ("rho",)),
+                builds=(("master",) if (master_next and not covered)
+                        else ()) + (() if (c.E or have_rho) else ("rho",)),
+                detail=("library-batched lookups on cached kNN master"
+                        if master_next
+                        else "library-batched direct engine, ceil(N/B) "
+                             "launches per E-group"))
+        if task == "smap":
+            raise _not_ported("EDM.smap", "6 (S-Map)")
+        raise ValueError(f"unknown task {task!r}")
+
+    # ------------------------------------------------------------ caches
+
+    def _master(self, E_levels: int):
+        """Multi-E kNN master tables covering levels 1..E_levels.
+
+        Returns (dists, idx, k_master, levels), dists/idx of shape
+        (N, E_levels, L, k_master) on the session's device. Built lazily
+        at the highest level any method has needed so far; a deeper
+        request rebuilds once and re-caches.
+        """
+        c = self.config
+        hit = self._cache.get("master")
+        if hit is not None and hit[3] >= E_levels:
+            self._bump("knn_master_hits")
+            return hit
+        k_m = max(E_levels + 1, c.k or 0) + c.slack
+        with telemetry.span("session.master_build", E_levels=E_levels,
+                            k_master=k_m, N=self.data.N):
+            dM, iM = panel_master(self.data.panel, E_max=E_levels,
+                                  tau=c.tau, k=k_m, impl=self._impl)
+        self._bump("knn_master_builds")
+        hit = self._cache["master"] = (dM, iM, k_m, E_levels)
+        return hit
+
+    def _rho(self):
+        """Cached (E_opt, rho-curve) pair, computing it on first use."""
+        hit = self._cache.get("rho")
+        if hit is None:
+            hit = self._cache["rho"] = self._run_optimal_E()
+        else:
+            self._bump("rho_hits")
+        return hit
+
+    # ---------------------------------------------------------- optimal E
+
+    def _run_optimal_E(self) -> tuple[np.ndarray, np.ndarray]:
+        c = self.config
+        if not c.cache:
+            raise _not_ported("optimal_E without a session cache "
+                              "(core.simplex.optimal_E_batch)",
+                              "3 (core/simplex.py)")
+        dM, iM, _, _ = self._master(c.E_max)
+        rho = rho_curves_from_master(
+            self.data.panel, dM[:, :c.E_max], iM[:, :c.E_max],
+            E_max=c.E_max, tau=c.tau, Tp=c.Tp, impl=self._impl)
+        rho = rho.cpu().numpy()
+        E_opt = (np.argmax(rho, axis=1) + 1).astype(np.int32)
+        bad = self._invalid
+        if bad is not None:
+            # Masked-invalid series: pin E to 1 (a deterministic group)
+            # and NaN the ρ(E) curve so everything read off it inherits it.
+            E_opt = E_opt.copy()
+            E_opt[bad] = 1
+            rho = np.array(rho, np.float32)
+            rho[bad] = np.nan
+        return E_opt, rho
+
+    def optimal_E(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-series optimal embedding dimension and the ρ(E) sweep.
+
+        Returns (E_opt (N,) int32, rho (N, E_max)). Cached, as is the kNN
+        master built for it.
+        """
+        with telemetry.span("session.optimal_E", E_max=self.config.E_max,
+                            N=self.data.N):
+            self._plan_event("optimal_E")
+            E_opt, rho = self._rho()
+        return E_opt.copy(), rho.copy()
+
+    # ------------------------------------------------------------ simplex
+
+    def simplex(self, E: int | None = None) -> np.ndarray:
+        """Leave-one-out simplex forecast skill per series → (N,) ρ.
+
+        ``E=None`` with a per-series config reads the skill off the cached
+        optimal-E sweep; a fixed E derives its table from the cached master.
+        """
+        c = self.config
+        E = E if E is not None else c.E
+        with telemetry.span("session.simplex", N=self.data.N,
+                            E=E or "per-series"):
+            if E is None:
+                E_opt, rho = self._rho()
+                return rho[np.arange(self.data.N), E_opt - 1].copy()
+            if not c.cache:
+                raise _not_ported("simplex without a session cache "
+                                  "(core.simplex.simplex_skill)",
+                                  "3 (core/simplex.py)")
+            _, iM, _, _ = self._master(E)
+            return self._mask_rows(simplex_skill_from_master(
+                self.data.panel, iM[:, E - 1], E=E, tau=c.tau, Tp=c.Tp,
+                k=c.k_for(E), impl=self._impl).cpu().numpy())
+
+    # --------------------------------------------------------------- ccm
+
+    def smap(self, *args, **kwargs):
+        raise _not_ported("EDM.smap", "6 (S-Map)")
+
+    def ccm(self, *args, **kwargs):
+        raise _not_ported("EDM.ccm (lib_sizes= convergence sweeps)",
+                          "5 (Convergence and significance)")
+
+    def surrogate_test(self, *args, **kwargs):
+        raise _not_ported("EDM.surrogate_test",
+                          "5 (Convergence and significance)")
+
+    def append(self, delta):
+        raise _not_ported("EDM.append", "8 (Append and serving)")
+
+    def ccm_batch(self, pairs, *, E: int) -> np.ndarray:
+        """Full-library CCM skill for many (lib, target) pairs → (n,) ρ.
+
+        One library-batched master-derived launch per call; a pair's ρ is
+        the same whatever other pairs share its batch (batch invariance).
+        Pairs touching masked-invalid series come back NaN.
+        """
+        c = self.config
+        E = int(E)
+        idx = [(self.data.index_of(l), self.data.index_of(t))
+               for l, t in pairs]
+        out = np.full(len(idx), np.nan, np.float32)
+        live = [(j, li, ti) for j, (li, ti) in enumerate(idx)
+                if not self._pair_invalid(li, ti)]
+        if not live:
+            return out
+        Lp = num_embedded(self.data.L, E, c.tau)
+        cap = Lp - max(c.Tp_cross, 0)
+        k = E + 1
+        hit = self._master(E) if c.cache else None
+        if hit is None or not master_slack_covers(
+                (cap,), Lp=Lp, k=k, k_master=hit[2]):
+            raise _not_ported("ccm_batch without a covering kNN master "
+                              "(per-pair EDM.ccm)",
+                              "5 (Convergence and significance)")
+        libs = sorted({li for _, li, _ in live})
+        lpos = {li: i for i, li in enumerate(libs)}
+        la = torch.as_tensor(libs, device=self.device)
+        with telemetry.span("session.ccm_batch", pairs=len(idx),
+                            libs=len(libs), E=E):
+            self._plan_event("ccm")
+            g = ccm_group_from_master_batched(
+                self.data.panel[la], hit[1][la, E - 1], self.data.panel,
+                E=E, tau=c.tau, Tp=c.Tp_cross, k=k, impl=self._impl)
+        for j, li, ti in live:
+            out[j] = g[lpos[li], ti]
+        self._bump("ccm_batch_pairs", len(live))
+        return out
+
+    # -------------------------------------------------------------- xmap
+
+    def xmap(self, method: str = "simplex", *, E_opt=None,
+             theta: float | None = None,
+             run_dir: str | None = None) -> np.ndarray:
+        """All-pairs cross-map skill matrix → (N, N) ρ.
+
+        Entry (l, t) = skill of cross-mapping series t from series l's
+        manifold at t's optimal E (evidence "t causes l"). Each E-group
+        runs as ceil(N/B) library-batched launches double-buffered against
+        host assembly; a cached kNN master supplies the neighbour indices,
+        otherwise the direct ``all_knn_batch`` engine runs.
+        """
+        if method == "smap":
+            raise _not_ported("xmap(method='smap')", "6 (S-Map)")
+        if method != "simplex":
+            raise ValueError(f"unknown xmap method {method!r}")
+        if run_dir is not None:
+            raise _not_ported("xmap(run_dir=) journaled runs",
+                              "7 (Journaled runs)")
+        c = self.config
+        N = self.data.N
+        with telemetry.span("session.xmap", method=method, N=N,
+                            journaled=False, placement="local"):
+            self._plan_event("xmap")
+            if E_opt is None:
+                E_opt = np.full(N, c.E, np.int32) if c.E else self._rho()[0]
+            _, groups = _e_groups(E_opt, N)
+            rho = self._xmap_local(groups)
+        return self._mask_matrix(rho)
+
+    def _xmap_group_launch(self, E, members, iM):
+        """One E-group's engine as a ``launch(a, b, B)`` closure + its B."""
+        c = self.config
+        X = self.data.panel
+        N = self.data.N
+        tgts = X[torch.as_tensor(members, device=self.device)]
+        Lp = num_embedded(self.data.L, E, c.tau)
+        if iM is not None:
+            launch = make_master_group_launch(
+                X, iM[:, E - 1], tgts, E=E, tau=c.tau, Tp=c.Tp_cross,
+                k=c.k_for(E), impl=self._impl)
+            B = c.batch_libs or auto_batch_libs(
+                Lp, N, c.batch_budget_mb, device=self.device,
+                per_series_bytes=master_group_batch_bytes(
+                    Lp, iM.shape[-1]))
+            return launch, max(1, min(int(B), N))
+        launch = make_group_launch(X, tgts, E=E, tau=c.tau, Tp=c.Tp_cross,
+                                   k=c.k_for(E), impl=self._impl)
+        B = c.batch_libs or auto_batch_libs(Lp, N, c.batch_budget_mb,
+                                            device=self.device)
+        return launch, max(1, min(int(B), N))
+
+    def _xmap_local(self, groups) -> np.ndarray:
+        """Local all-pairs matrix: library-batched engine per E-group.
+
+        A cached master covering the needed levels supplies the indices;
+        otherwise the direct engine runs — a one-shot matrix does not pay
+        for a master it would use once, a repeated one (second direct run
+        on a caching session) builds it.
+        """
+        c = self.config
+        N = self.data.N
+        hit = self._cache.get("master")
+        use_master = c.cache and hit is not None and hit[3] >= max(groups)
+        if c.cache and not use_master and self.stats["xmap_direct_runs"] > 0:
+            use_master = True
+        if use_master:
+            iM = self._master(max(groups))[1]
+        else:
+            iM = None
+            if c.cache:
+                self._bump("xmap_direct_runs")
+        rho = np.zeros((N, N), np.float32)
+        for E, members in groups.items():
+            launch, B = self._xmap_group_launch(E, members, iM)
+            rho[:, members] = drive_batched(N, B, launch)
+        return rho
+
+    # ------------------------------------------------------ batched entry
+
+    def submit_panel(self, panel, tasks=("optimal_E",)) -> int:
+        """Queue a panel for batched execution; returns a ticket id.
+
+        Queued panels of the same length are concatenated and driven
+        through one session per task at ``flush()``.
+        """
+        tasks = tuple(tasks)
+        for t in tasks:
+            if t == "smap":
+                raise _not_ported("submit_panel task 'smap'", "6 (S-Map)")
+            if t not in ("optimal_E", "xmap"):
+                raise ValueError(
+                    f"unknown task {t!r}; expected ('optimal_E', 'xmap')")
+        panel = np.asarray(panel, np.float32)
+        if panel.ndim == 1:
+            panel = panel[None, :]
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._queue.append((ticket, panel, tasks))
+        return ticket
+
+    def flush(self) -> dict[int, PanelResult]:
+        """Run every queued panel; returns {ticket: PanelResult}."""
+        queue, self._queue = self._queue, []
+        with telemetry.span("session.flush", panels=len(queue)):
+            return self._flush_batches(queue)
+
+    def _flush_batches(self, queue) -> dict[int, PanelResult]:
+        results = {t: PanelResult() for t, _, _ in queue}
+        batches: dict[tuple, list] = collections.defaultdict(list)
+        for ticket, panel, tasks in queue:
+            batches[(panel.shape[1], tasks)].append((ticket, panel))
+        for (L, tasks), items in batches.items():
+            big = np.concatenate([p for _, p in items], axis=0)
+            sess = EDM(big, self.config)
+            offs = np.cumsum([0] + [p.shape[0] for _, p in items])
+            if "optimal_E" in tasks:
+                E_opt, rho = sess.optimal_E()
+                for (ticket, _), a, b in zip(items, offs, offs[1:]):
+                    results[ticket].E_opt = E_opt[a:b]
+                    results[ticket].rho = rho[a:b]
+            if "xmap" in tasks:
+                # Cross terms force per-panel matrices, but the batch
+                # session's per-series state slices cleanly: each panel
+                # gets its E_opt slice and its rows of the kNN master.
+                E_all = None if self.config.E else sess._rho()[0]
+                master = sess._cache.get("master")
+                for (ticket, panel), a, b in zip(items, offs, offs[1:]):
+                    psess = EDM(panel, self.config)
+                    if master is not None:
+                        dM, iM, k_m, lv = master
+                        psess._cache["master"] = (dM[a:b], iM[a:b], k_m, lv)
+                    results[ticket].xmap = psess.xmap(
+                        E_opt=None if E_all is None else E_all[a:b])
+            self._bump("panels_flushed", len(items))
+        return results

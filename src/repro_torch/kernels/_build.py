@@ -1,0 +1,130 @@
+"""Build and load the CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
+so a build takes seconds. Builds run at first use, all sources in
+parallel, into ``build/repro_torch/<hash>/`` at the repository root, keyed
+by a hash of every source and of the flags: an edit to any ``.cu`` or
+``.cuh`` file builds afresh. Strict IEEE float arithmetic is part of the
+kernels' contract (bit-exact kNN), hence ``--fmad=false`` and never
+``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("knn_multi_e", "knn_batch", "lookup_rho")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_entries: dict = {}  # kernel name → its loaded C launch function
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (``$CUDA_HOME/bin/nvcc`` or on PATH)."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build on a machine with the "
+            "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> pathlib.Path:
+    return BUILD_ROOT / source_hash()
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel that is not built yet; returns {name: ptxas log}.
+
+    All ``nvcc`` processes start together and are waited for; a failed
+    compile raises with the compiler's output. A file lock keeps two
+    processes from building the same directory at once.
+    """
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            procs = {}
+            for name in KERNELS:
+                if (out / f"lib{name}.so").exists():
+                    continue
+                tmp = out / f"lib{name}.so.tmp"
+                procs[name] = (tmp, subprocess.Popen(
+                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            failed = []
+            for name, (tmp, proc) in procs.items():
+                log, _ = proc.communicate()
+                (out / f"{name}.log").write_text(log)
+                if proc.returncode != 0:
+                    failed.append(f"--- {name}.cu ---\n{log}")
+                else:
+                    os.replace(tmp, out / f"lib{name}.so")
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+    return {name: (out / f"{name}.log").read_text() for name in KERNELS
+            if (out / f"{name}.log").exists()}
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "knn_multi_e": ("knn_multi_e_launch",
+                    [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                     _P]),
+    "knn_batch": ("knn_batch_launch",
+                  [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "lookup_rho": ("lookup_rho_launch",
+                   [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _P, _P]),
+}
+
+
+def entry(name: str):
+    """The C launch function of kernel ``name`` (built on first use)."""
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            path = build_dir() / f"lib{name}.so"
+            if not path.exists():
+                build_all()
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(path)), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _entries[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -1,0 +1,113 @@
+"""Dispatch seam for the EDM kernels: the device picks the implementation.
+
+Every caller goes through these entry points. A tensor on a CUDA device
+goes to the hand-written kernel (or the kernel's wrapper raises — there
+is no fallback), a tensor on the CPU goes to the plain PyTorch version in
+``kernels/ref.py``. ``impl="ref"`` is the one explicit way to run the
+plain versions on CUDA tensors (the on-card comparison in
+``chip_smoke.py``); ``impl="auto"`` is the device rule above.
+
+Each dispatch bumps an ``edm_ops_<op>_calls`` counter (the invocation
+counts the session tests assert on); each kernel wrapper also keeps a
+plain integer ``launches`` count of the kernels it actually launched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import telemetry
+from repro_torch.kernels import knn_batch, knn_multi_e, lookup
+from repro_torch.kernels import ref as _ref
+
+make_weights = _ref.make_weights
+pearson_rows = _ref.pearson_rows
+num_embedded = _ref.num_embedded
+
+#: Every implementation name the dispatch layer accepts.
+IMPLS = ("auto", "ref")
+
+
+def check_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    return impl
+
+
+def _kernel_path(t: torch.Tensor, impl: str) -> bool:
+    """Does this call launch the CUDA kernel (else the plain version)?"""
+    return check_impl(impl) == "auto" and t.device.type != "cpu"
+
+
+def _tel(op: str, kernel: bool, **attrs) -> None:
+    telemetry.counter(f"edm_ops_{op}_calls").inc()
+    if telemetry.active():
+        telemetry.event(f"ops.{op}", impl="cuda" if kernel else "ref",
+                        **attrs)
+
+
+def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
+                    k: int | None = None, exclude_self: bool = True,
+                    max_idx=None, impl: str = "auto"):
+    """Incremental all-kNN for every E in 1..E_max in one pass.
+
+    ``X`` is one (L,) series → (E_max, L, k_max) tables, or an (N, L)
+    panel → (N, E_max, L, k_max) (one kernel launch for the panel).
+    Padding is inf / -1; ``[.., E-1, :Lp_E, :k_E]`` is the table at E.
+    """
+    kernel = _kernel_path(X, impl)
+    _tel("all_knn_multi_e", kernel, E_max=E_max, L=int(X.shape[-1]))
+    if not kernel:
+        return _ref.all_knn_multi_e(X, E_max=E_max, tau=tau, k=k,
+                                    exclude_self=exclude_self,
+                                    max_idx=max_idx)
+    if X.ndim == 1:
+        d, i = knn_multi_e.all_knn_multi_e(
+            X[None], E_max=E_max, tau=tau, k=k, exclude_self=exclude_self,
+            max_idx=max_idx)
+        return d[0], i[0]
+    return knn_multi_e.all_knn_multi_e(
+        X, E_max=E_max, tau=tau, k=k, exclude_self=exclude_self,
+        max_idx=max_idx)
+
+
+def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
+                  k: int | None = None, exclude_self: bool = True,
+                  max_idx=None, impl: str = "auto"):
+    """All-kNN tables for B library series in one launch → (B, Lp, k),
+    bit-invariant in B."""
+    kernel = _kernel_path(X, impl)
+    _tel("all_knn_batch", kernel, E=E, B=int(X.shape[0]), L=int(X.shape[-1]))
+    if not kernel:
+        return _ref.all_knn_batch(X, E=E, tau=tau, k=k,
+                                  exclude_self=exclude_self, max_idx=max_idx)
+    return knn_batch.all_knn_batch(X, E=E, tau=tau, k=k,
+                                   exclude_self=exclude_self, max_idx=max_idx)
+
+
+def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+               offset: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Fused lookup + Pearson ρ of every target (paper §3.4).
+
+    ``idx``/``w`` (rows, k) → (N,); a batch (B, rows, k) → (B, N), each
+    row independent of B.
+    """
+    kernel = _kernel_path(Y, impl)
+    _tel("lookup_rho", kernel, N=int(Y.shape[0]))
+    if not kernel:
+        if idx.ndim == 2:
+            return _ref.lookup_rho(Y, idx, w, offset=offset)
+        return _ref.lookup_rho_batch(Y, idx, w, offset=offset)
+    if idx.ndim == 2:
+        return lookup.lookup_rho(Y, idx[None], w[None], offset=offset)[0]
+    return lookup.lookup_rho(Y, idx, w, offset=offset)
+
+
+def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+                   offset: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Table b against its own series X[b] only → (B,) ρ (one launch)."""
+    kernel = _kernel_path(X, impl)
+    _tel("lookup_rho", kernel, N=int(X.shape[0]))
+    if not kernel:
+        return _ref.lookup_rho_own(X, idx, w, offset=offset)
+    return lookup.lookup_rho(X, idx, w, offset=offset, own=True)

@@ -1,0 +1,267 @@
+"""Plain PyTorch versions of the main-path EDM kernels (eager, uncompiled).
+
+Op-for-op counterparts of ``repro/kernels/ref.py``: the CPU tests run
+them against the JAX reference, and on the GPU they are what each CUDA
+kernel is held against. They stay eager on purpose: every op rounds on
+its own, so a distance chain is the strict two-rounding
+``fl(acc + fl(d·d))`` at any shape (no FMA contraction), exactly as the
+reference pins it.
+
+Index conventions (0-based, as in the reference):
+  - delay embedding of a series ``x`` of length L with dimension E, lag tau:
+        z_i[k] = x[i + k*tau],   k in [0, E),  i in [0, Lp),
+    with ``Lp = L - (E-1)*tau`` embedded points.
+  - a lookup with horizon Tp reads target values at
+    ``I[j, k] + (E-1)*tau + Tp`` — callers pass that combined ``offset``.
+
+Selection is an exact stable (value, index) order: masked candidates
+enter as +inf with their real column index, and ``torch.sort(stable=True)``
+keeps equal values in ascending column order — ``lax.top_k``'s tie rule
+in the reference. (``torch.topk`` promises no tie order.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PAD_IDX = -1  # idx padding outside the valid (Lp_E, k_E) block per level
+
+_INF = float("inf")
+
+
+def strict_sq(d: torch.Tensor) -> torch.Tensor:
+    """The rounded square fl(d·d); NaN products select 0.0 as in the
+    reference (inputs are screened finite, so that arm is dead)."""
+    d2 = d * d
+    return torch.where(d2 > -1.0, d2, torch.zeros_like(d2))
+
+
+def num_embedded(L: int, E: int, tau: int) -> int:
+    """Number of valid delay-embedding vectors."""
+    n = L - (E - 1) * tau
+    if n <= 0:
+        raise ValueError(f"series too short: L={L}, E={E}, tau={tau}")
+    return n
+
+
+def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root.
+
+    ``torch.sqrt`` on the CPU is not correctly rounded for float32 (1 ULP
+    off on some inputs), while the reference's and the CUDA kernels' are.
+    The root of a float32 taken in float64 and rounded once to float32 is
+    the correctly rounded float32 root (float64 carries more than
+    2·24 + 2 bits, so the double rounding is exact for sqrt).
+    """
+    return torch.sqrt(v.double()).float()
+
+
+def _select(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest per row in (value, index) order → (sqrt dists, int32 idx)."""
+    sv, si = torch.sort(vals, dim=-1, stable=True)
+    return sqrt_rn(sv[..., :k]), si[..., :k].to(torch.int32)
+
+
+def sum_last(w: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum over the last axis, one elementwise add per slot.
+
+    The summation order is fixed by the code, not by a reduction kernel's
+    launch shape, so each row's sum is the same at any batch size — the
+    batch-invariance contract of the matrix engines.
+    """
+    s = w[..., 0]
+    for c in range(1, w.shape[-1]):
+        s = s + w[..., c]
+    return s
+
+
+def make_weights(dists: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Simplex weights from sorted neighbor distances, paper step (3).
+
+    w_i = exp(-d_i / d_min) normalized to sum 1; rows with no valid
+    neighbor (all-inf distances) get all-zero weights instead of NaN.
+    """
+    d_min = torch.clamp(dists[..., :1], min=eps)
+    ratio = torch.where(torch.isfinite(d_min), dists / d_min,
+                        torch.full_like(dists, _INF))
+    w = torch.exp(-ratio)
+    s = sum_last(w)[..., None]
+    return torch.where(s > 0, w / torch.clamp(s, min=eps),
+                       torch.zeros_like(w))
+
+
+def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+           offset: int = 0) -> torch.Tensor:
+    """Batched simplex lookup, paper Algorithm 3 → (N, rows).
+
+    Yhat[n, j] = sum_k w[j, k] * Y[n, idx[j, k] + offset]. Indices are
+    clamped into [0, L-1]: invalid slots carry idx = -1 with weight 0
+    (``edm.plan._derive_idx``), so clamping leaves finite results as they
+    are while ``torch`` indexing would raise on them.
+    """
+    L = Y.shape[-1]
+    cols = torch.clamp(idx.long() + offset, 0, L - 1)
+    g = Y[:, cols]  # (N, rows, k)
+    return (g * w.to(Y.dtype)).sum(-1)
+
+
+def pearson_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise Pearson correlation, two-pass; 0 where a variance is 0."""
+    a = a.float()
+    b = b.float()
+    am = a - a.mean(-1, keepdim=True)
+    bm = b - b.mean(-1, keepdim=True)
+    cov = (am * bm).sum(-1)
+    va = (am * am).sum(-1)
+    vb = (bm * bm).sum(-1)
+    denom = torch.sqrt(va * vb)
+    return torch.where(denom > 0, cov / torch.clamp(denom, min=1e-30),
+                       torch.zeros_like(cov))
+
+
+def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+               offset: int = 0) -> torch.Tensor:
+    """Fused lookup + Pearson ρ per target → (N,).
+
+    Compares Yhat[n, j] with the aligned truth Y[n, j + offset].
+    """
+    yhat = lookup(Y, idx, w, offset=offset)
+    rows = idx.shape[0]
+    return pearson_rows(yhat, Y[:, offset:offset + rows])
+
+
+def lookup_rho_batch(Y, idx, w, *, offset: int = 0) -> torch.Tensor:
+    """B tables against all N targets → (B, N): one ``lookup_rho`` per
+    table, so each row sees the shapes of a B = 1 call."""
+    return torch.stack([lookup_rho(Y, idx[b], w[b], offset=offset)
+                        for b in range(idx.shape[0])])
+
+
+def lookup_rho_own(X, idx, w, *, offset: int = 0) -> torch.Tensor:
+    """Table b against its own series X[b] only → (B,)."""
+    return torch.stack([lookup_rho(X[b:b + 1], idx[b], w[b],
+                                   offset=offset)[0]
+                        for b in range(idx.shape[0])])
+
+
+# --------------------------------------------------------------------------
+# Library-batched all-kNN (the CCM matrix engine primitive).
+# --------------------------------------------------------------------------
+
+
+def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
+                  k: int | None = None, exclude_self: bool = True,
+                  max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """All-kNN tables for B library series → (B, Lp, k) dists + int32 idx.
+
+    Slice b depends on X[b] only (bit-invariant in B). Masked columns
+    (past ``max_idx``, and self) enter the selection as +inf with their
+    column index.
+    """
+    if X.ndim != 2:
+        raise ValueError(f"X must be (B, L), got shape {tuple(X.shape)}")
+    B, L = X.shape
+    Lp = num_embedded(L, E, tau)
+    k = E + 1 if k is None else int(k)
+    if k > Lp:
+        raise ValueError(f"k={k} exceeds the {Lp} candidates per row")
+    Xf = X.float()
+    acc = torch.zeros((B, Lp, Lp), dtype=torch.float32, device=X.device)
+    for lag in range(E):
+        xk = Xf[:, lag * tau:lag * tau + Lp]
+        acc = acc + strict_sq(xk[:, :, None] - xk[:, None, :])
+    cols = torch.arange(Lp, device=X.device)
+    mask = torch.zeros((Lp, Lp), dtype=torch.bool, device=X.device)
+    if exclude_self:
+        mask |= torch.eye(Lp, dtype=torch.bool, device=X.device)
+    if max_idx is not None:
+        mask |= (cols[None, :] > int(max_idx))
+    return _select(torch.where(mask[None], _INF, acc), k)
+
+
+# --------------------------------------------------------------------------
+# Incremental multi-E all-kNN (the one-pass optimal-E sweep engine).
+#
+# D_E = D_{E-1} + (x[i+(E-1)τ] − x[j+(E-1)τ])², so the stack of per-E
+# tables costs one O(E_max·L²) accumulation. Outputs are padded to the
+# E=1 shape (E_max, L, k_max); padding is dist=inf / idx=PAD_IDX.
+# --------------------------------------------------------------------------
+
+
+def multi_e_ks(E_max: int, k: int | None) -> tuple[int, ...]:
+    """Per-level neighbor counts: k_E = E+1 (simplex default) or uniform k."""
+    if E_max < 1:
+        raise ValueError(f"E_max must be >= 1, got {E_max}")
+    if k is None:
+        return tuple(e + 2 for e in range(E_max))  # E = e+1 → k = E+1
+    return (int(k),) * E_max
+
+
+def multi_e_max_idx(L: int, E_max: int, tau: int, max_idx) -> tuple[int, ...]:
+    """Per-level candidate caps, clamped to the level's last valid index.
+
+    ``max_idx`` may be None, an int, or an (E_max,) sequence of ints.
+    """
+    base = [L - e * tau - 1 for e in range(E_max)]
+    if max_idx is None:
+        return tuple(base)
+    mx = np.broadcast_to(np.asarray(max_idx, np.int64), (E_max,))
+    return tuple(int(min(m, b)) for m, b in zip(mx, base))
+
+
+def pad_multi_e_tables(dists, idx, *, E_max: int, tau: int,
+                       ks: tuple[int, ...]):
+    """Force dist=inf / idx=PAD_IDX outside each level's (Lp_E, k_E) block."""
+    L = dists.shape[-2]
+    dev = dists.device
+    lev = torch.arange(E_max, device=dev)[:, None, None]
+    rows = torch.arange(L, device=dev)[None, :, None]
+    kcol = torch.arange(dists.shape[-1], device=dev)[None, None, :]
+    ks_a = torch.tensor(ks, device=dev)[:, None, None]
+    valid = (rows < L - lev * tau) & (kcol < ks_a)
+    return (torch.where(valid, dists, _INF),
+            torch.where(valid, idx, PAD_IDX))
+
+
+def all_knn_multi_e(x: torch.Tensor, *, E_max: int, tau: int = 1,
+                    k: int | None = None, exclude_self: bool = True,
+                    max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Neighbor tables for every E in 1..E_max in one incremental pass.
+
+    Returns (dists, idx), both (E_max, L, k_max): slice
+    ``[E-1, :Lp_E, :k_E]`` is the table at dimension E. A (N, L) panel
+    gives (N, E_max, L, k_max), one series at a time.
+    """
+    if x.ndim == 2:
+        outs = [all_knn_multi_e(xs, E_max=E_max, tau=tau, k=k,
+                                exclude_self=exclude_self, max_idx=max_idx)
+                for xs in x]
+        return (torch.stack([d for d, _ in outs]),
+                torch.stack([i for _, i in outs]))
+    L = x.shape[-1]
+    num_embedded(L, E_max, tau)  # raises on too-short series
+    ks = multi_e_ks(E_max, k)
+    mxs = multi_e_max_idx(L, E_max, tau, max_idx)
+    k_max = max(ks)
+    if k_max > L:
+        raise ValueError(f"k={k_max} exceeds the {L} candidates per row")
+    dev = x.device
+    xpad = torch.cat([x.float(),
+                      torch.zeros((E_max - 1) * tau, device=dev)])
+    cols = torch.arange(L, device=dev)[None, :]
+    rows = torch.arange(L, device=dev)[:, None]
+    acc = torch.zeros((L, L), dtype=torch.float32, device=dev)
+    outs_d, outs_i = [], []
+    for e in range(E_max):  # level e ↔ embedding dim E = e+1
+        xk = xpad[e * tau:e * tau + L]
+        acc = acc + strict_sq(xk[:, None] - xk[None, :])
+        invalid = cols > mxs[e]
+        if exclude_self:
+            invalid = invalid | (cols == rows)
+        d, i = _select(torch.where(invalid, _INF, acc), ks[e])
+        pad = k_max - ks[e]
+        outs_d.append(torch.nn.functional.pad(d, (0, pad), value=_INF))
+        outs_i.append(torch.nn.functional.pad(i, (0, pad), value=PAD_IDX))
+    return pad_multi_e_tables(torch.stack(outs_d), torch.stack(outs_i),
+                              E_max=E_max, tau=tau, ks=ks)

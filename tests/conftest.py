@@ -9,3 +9,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips with the reason without one")

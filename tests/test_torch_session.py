@@ -1,0 +1,176 @@
+"""Port vs reference: the ``EDM`` session's main path on the CPU.
+
+The same numpy panel is bound to ``repro.edm.EDM`` (JAX on the CPU,
+``impl="ref"``) and to ``repro_torch.edm.EDM(device="cpu")``, whose CPU
+tensors run the plain versions of the CUDA kernels. kNN tables are
+bit-equal (tests/test_torch_knn.py), so E_opt must be equal; every ρ goes
+through float32 reductions ordered differently by XLA and PyTorch, so ρ is
+held to atol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.ccm import ccm_group_batched as j_group_batched
+from repro.data import timeseries as ts
+from repro.edm import EDM as JEDM
+from repro_torch import telemetry
+from repro_torch.core.ccm import ccm_group_batched
+from repro_torch.edm import EDM, EDMConfig, carry_session_cache
+
+ATOL = 1e-5
+E_MAX = 6
+
+
+def _panel(seed: int) -> np.ndarray:
+    """Six series whose optimal E differs (logistic, tent and Lorenz)."""
+    net, _ = ts.forced_network_panel(6, 200, seed=seed)
+    return np.concatenate([net[:4], ts.tent_map_panel(1, 200, seed=seed),
+                           ts.lorenz63(200)[:1]]).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=[4, 9])
+def pair(request):
+    panel = _panel(request.param)
+    js = JEDM(panel, impl="ref", E_max=E_MAX)
+    ts_ = EDM(panel, E_max=E_MAX, device="cpu")
+    return panel, js, ts_
+
+
+def test_optimal_E_equal_reference(pair):
+    _, js, ts_ = pair
+    E_j, rho_j = js.optimal_E()
+    E_t, rho_t = ts_.optimal_E()
+    top2 = np.sort(rho_j, axis=1)[:, -2:]
+    # No near-tie between the best two E: the equality below is not vacuous.
+    assert (top2[:, 1] - top2[:, 0]).min() >= ATOL
+    assert len(set(E_j.tolist())) > 1  # more than one E-group
+    np.testing.assert_array_equal(E_t, E_j)
+    np.testing.assert_allclose(rho_t, rho_j, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ts_.simplex(), js.simplex(), rtol=0,
+                               atol=ATOL)
+
+
+def test_xmap_master_route_matches_reference(pair):
+    _, js, ts_ = pair
+    js.optimal_E()
+    ts_.optimal_E()
+    direct = ts_.stats["xmap_direct_runs"]
+    np.testing.assert_allclose(ts_.xmap(), js.xmap(), rtol=0, atol=ATOL)
+    assert ts_.stats["xmap_direct_runs"] == direct  # cached master used
+
+
+def test_simplex_and_ccm_batch_match_reference(pair):
+    _, js, ts_ = pair
+    np.testing.assert_allclose(ts_.simplex(E=2), js.simplex(E=2), rtol=0,
+                               atol=ATOL)
+    pairs = [(0, 1), (4, 5), (5, 0), (2, 2)]
+    np.testing.assert_allclose(ts_.ccm_batch(pairs, E=3),
+                               js.ccm_batch(pairs, E=3), rtol=0, atol=ATOL)
+
+
+def test_xmap_fixed_E_direct_route_matches_reference():
+    panel = _panel(4)
+    ts_ = EDM(panel, E=3, device="cpu")
+    got = ts_.xmap()
+    assert ts_.stats["xmap_direct_runs"] == 1 and "master" not in ts_._cache
+    want = JEDM(panel, impl="ref", E=3).xmap()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("E", [None, 3], ids=["master", "direct"])
+def test_xmap_bit_invariant_in_batch_size(E):
+    panel = _panel(9)
+    outs = []
+    for B in (1, 2, panel.shape[0]):
+        sess = EDM(panel, E=E, E_max=E_MAX, batch_libs=B, device="cpu")
+        outs.append(sess.xmap())
+    for m in outs[1:]:
+        np.testing.assert_array_equal(m, outs[0])
+
+
+def test_carried_master_gives_reference_xmap():
+    panel = _panel(9)
+    js = JEDM(panel, impl="ref", E_max=E_MAX)
+    js.optimal_E()
+    cache = {"master": tuple(np.asarray(v) if not isinstance(v, int) else v
+                             for v in js._cache["master"]),
+             "rho": js._cache["rho"]}
+    ts_ = carry_session_cache(EDM(panel, E_max=E_MAX, device="cpu"), cache)
+    got = ts_.xmap()
+    assert ts_.stats["knn_master_builds"] == 0
+    np.testing.assert_allclose(got, js.xmap(), rtol=0, atol=ATOL)
+
+
+def test_carry_rejects_mismatched_master():
+    sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
+    bad = (np.zeros((6, 2, 199, 4), np.float32),
+           np.zeros((6, 2, 199, 4), np.int32), 4, 2)
+    with pytest.raises(ValueError, match="do not match"):
+        carry_session_cache(sess, {"master": bad})
+
+
+def test_counters_and_plan():
+    sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
+    with telemetry.record() as rec:
+        sess.optimal_E()
+        sess.xmap()
+    assert rec.counter_delta("edm_ops_all_knn_multi_e_calls") == 1
+    assert rec.counter_delta("edm_knn_master_builds") == 1
+    assert rec.counter_delta("edm_ops_lookup_rho_calls") >= E_MAX
+    assert sess.plan("xmap").reuse == ("master", "rho")
+    assert sess.plan("optimal_E").impl == "ref"
+
+
+def test_submit_panel_flush_matches_sessions():
+    a, b = _panel(4), _panel(9)
+    sess = EDM(a, E_max=E_MAX, device="cpu")
+    ta = sess.submit_panel(a, tasks=("optimal_E", "xmap"))
+    tb = sess.submit_panel(b, tasks=("optimal_E", "xmap"))
+    res = sess.flush()
+    for t, p in ((ta, a), (tb, b)):
+        direct = EDM(p, E_max=E_MAX, device="cpu")
+        E_opt, _ = direct.optimal_E()
+        np.testing.assert_array_equal(res[t].E_opt, E_opt)
+        np.testing.assert_array_equal(res[t].xmap, direct.xmap())
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert EDMConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="not available"):
+        EDM(_panel(4))
+
+
+def test_unported_methods_raise_naming_roadmap():
+    sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
+    calls = [lambda: sess.smap(), lambda: sess.ccm(0, 1, lib_sizes=(50,)),
+             lambda: sess.surrogate_test(0, 1), lambda: sess.append(None),
+             lambda: sess.xmap(run_dir="unused"),
+             lambda: EDMConfig(mesh=object())]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_invalid_series_policies():
+    panel = _panel(4)
+    panel[1, 5] = np.nan
+    with pytest.raises(ValueError, match="series 1"):
+        EDM(panel, device="cpu")
+    masked = EDM(panel, E_max=E_MAX, on_invalid="mask", device="cpu")
+    m = masked.xmap()
+    assert np.isnan(m[1]).all() and np.isnan(m[:, 1]).all()
+    assert np.isfinite(np.delete(np.delete(m, 1, 0), 1, 1)).all()
+    dropped = EDM(panel, E_max=E_MAX, on_invalid="drop", device="cpu")
+    assert dropped.data.N == 5
+
+
+def test_ccm_group_batched_matches_reference():
+    panel = _panel(9)
+    want = j_group_batched(panel[:4], panel, E=2, impl="ref", batch_libs=3)
+    got = ccm_group_batched(torch.from_numpy(panel[:4]),
+                            torch.from_numpy(panel), E=2, batch_libs=3)
+    assert got.shape == (4, panel.shape[0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
