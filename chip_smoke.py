@@ -7,16 +7,33 @@ phase passed; any failure exits nonzero. Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
-2. build — compiles the three kernels of ``src/repro_torch/kernels/csrc``
-   with nvcc (seconds, and what ``-Xptxas -v`` reports for each);
-3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (kNN tables equal, ρ within ``RHO_ATOL``), with
-   CUDA-event times of both and the least time the card could take;
+2. build — compiles every kernel of ``src/repro_torch/kernels/csrc`` with
+   nvcc, all at once (seconds, and what ``-Xptxas -v`` reports for each);
+3. kernels — each kernel against its plain PyTorch version on the card,
+   at small edge-case shapes and then at the shapes its path gives it
+   (kNN tables, distances and predictions bit-equal, ρ within
+   ``RHO_ATOL``), with CUDA-event times of both, of one PyTorch library
+   call where one computes the same function, the kernel's device time
+   from the profiler (``device_ms``: the event loop of a small kernel
+   measures the host's launch cost), and the least time the card could
+   take;
 4. main path — ``EDM(panel).optimal_E()`` then ``.xmap()``, and
    ``EDM(panel, E=3).xmap()``, on Fish1_Normo's published shape (154
-   series × 1600 steps, E_max = 20), with every kernel's launch count
-   read from that run; then the same calls with ``impl="ref"`` (the plain
-   versions on the card): E_opt equal, ρ within ``RHO_ATOL``.
+   series × 1600 steps, E_max = 20), with every kernel's launch count read
+   from that run; each call then timed as the median of ``RUNS`` runs;
+   then the same calls with ``impl="ref"`` (the plain versions on the
+   card): E_opt equal, ρ within ``RHO_ATOL``;
+5. slice path — on the same session, the 8 strongest links by the CCM
+   asymmetry ρ − ρᵀ, each through ``ccm(lib_sizes=...)`` (the convergence
+   engine), ``ccm()`` (the full library, master-derived) and
+   ``surrogate_test`` (100 shuffled nulls); then
+   ``EDM(panel, E=3, cache=False).simplex()`` and
+   ``EDM(panel, cache=False).optimal_E()``; launch counts per call,
+   medians of ``RUNS`` runs, peak memory; then the same calls with
+   ``impl="ref"``: ρ and null ρ within ``RHO_ATOL``, p-values equal
+   except where a null lies within ``P_MARGIN`` of the real ρ, E_opt
+   equal. Each call of both paths also runs once under ``torch.profiler``
+   for its device busy time, idle share and per-kernel device times.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -26,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -33,10 +51,18 @@ import time
 N_SERIES, LENGTH, E_MAX, SEED = 154, 1600, 20, 0  # Fish1_Normo, Table 1
 E_FIXED = 3           # the paper's fixed-E CCM benchmark setting
 K_MASTER = E_MAX + 2  # session master: E_max + 1 + slack (Tp = 1)
+LIB_SIZES = (50, 100, 200, 400, 800, 1200, 1500)  # convergence sweep
+SURR_SIZES = (200, 800, 1500)
+NUM_SURROGATES = 100
+NUM_LINKS = 8
+RUNS = 5              # timed runs per call, after one warm-up run
 # ρ tolerance: the kernel merges Welford moments over row slices, the plain
 # version takes a two-pass Pearson in another summation order; both are
 # float32 over 1600 terms, so they agree to a few float32 ULPs of ρ ≤ 1.
 RHO_ATOL = 1e-5
+# A null ρ this close to the real ρ may fall on either side of it under the
+# ρ tolerance, so its p-value may differ by one rank.
+P_MARGIN = 2e-5
 # Published H100 SXM peaks: HBM bytes/s and float32 (non-tensor-core) FLOP/s.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -66,46 +92,76 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> None:
-    root = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
-        fail("src/repro_torch is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.join(root, "src"))
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-
-    from repro_torch.data.timeseries import forced_network_panel
-    from repro_torch.edm import EDM
-    from repro_torch.kernels import _build, knn_batch, knn_multi_e, lookup
-    from repro_torch.kernels import ref
-
-    # ---------------------------------------------------------- 1. header
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-    dev = torch.device("cuda")
-
-    # ----------------------------------------------------------- 2. build
+def host_s(torch, fn):
+    """(result, seconds) of one call, host clock, ended by a device sync."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
-    # --------------------------------------------------------- 3. kernels
-    panel = forced_network_panel(N_SERIES, LENGTH, seed=SEED)[0]
-    X = torch.as_tensor(panel, device=dev)
+
+def spread(samples) -> dict:
+    """Median, min and max seconds of repeated runs."""
+    return {"median_s": statistics.median(samples), "min_s": min(samples),
+            "max_s": max(samples), "runs": len(samples)}
+
+
+def device_profile(torch, fn) -> dict:
+    """One call under ``torch.profiler`` (device activity only): its wall
+    seconds, the seconds the device was busy (the union of its kernel and
+    copy intervals), the idle share, and per kernel its launches and mean
+    device µs. The profiler's own cost is in the wall time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, per = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        m = re.search(r"::(\w+_kernel)\(", e.name)
+        name = m.group(1) if m else e.name[:48]
+        n, us = per.get(name, (0, 0.0))
+        per[name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
+            "idle_share": (1.0 - busy_us * 1e-6 / wall) if spans else None,
+            "kernels": {k: {"launches": n, "mean_us": us / n}
+                        for k, (n, us) in top}}
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device-busy ms per call of ``fn`` (profiler), after one warm-up:
+    the card's own time, without the host's launch cost that a CUDA-event
+    loop of small kernels measures."""
+    fn()
+    return device_profile(torch, lambda: [fn() for _ in range(reps)])[
+        "device_busy_s"] * 1e3 / reps
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
+               dev_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms, device_ms=dev_ms)
+
+
+def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
+    """The three kernels of ``optimal_E`` → ``xmap`` against their plain
+    versions: small edge cases, then the main path's shapes."""
     rows_out = []
-
     # Small shapes first: per-level k, capped and non-monotone masks, tau 2.
     Xs = X[:3, :257]
     for kw in (dict(E_max=6, tau=2, k=None, max_idx=None),
@@ -130,16 +186,15 @@ def main() -> None:
     fin = torch.isfinite(dk)
     err = float((dk[fin] - dp[fin]).abs().max())
     del dp, ip
-    ms = time_ms(torch, lambda: knn_multi_e.all_knn_multi_e(X, **mkw), 10)
+    kfn = lambda: knn_multi_e.all_knn_multi_e(X, **mkw)  # noqa: E731
+    ms = time_ms(torch, kfn, 10)
     plain_ms = time_ms(torch, lambda: knn_multi_e.plain(X, **mkw), 1, 0)
-    b, by = bound_ms(X.numel() * 4 + dk.numel() * 8,
-                     3.0 * N_SERIES * E_MAX * LENGTH * LENGTH)
-    rows_out.append(dict(
-        name="knn_multi_e", route="cuda",
-        source="src/repro_torch/kernels/csrc/knn_multi_e.cu",
-        replaces="src/repro/kernels/knn_multi_e.py:64",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=None))
+    rows_out.append(kernel_row(
+        "knn_multi_e", "src/repro_torch/kernels/csrc/knn_multi_e.cu",
+        "src/repro/kernels/knn_multi_e.py:64", err, ms, plain_ms,
+        bound_ms(X.numel() * 4 + dk.numel() * 8,
+                 3.0 * N_SERIES * E_MAX * LENGTH * LENGTH), None,
+        device_ms(torch, kfn, 3)))
     del dk, ik
 
     # knn_batch at the fixed-E direct route's kernel (B = N here).
@@ -150,16 +205,16 @@ def main() -> None:
     dp, ip = knn_batch.plain(X, **bkw)
     if not (torch.equal(dk, dp) and torch.equal(ik, ip)):
         fail("knn_batch differs from its plain version at B=154, E=3, k=4")
-    ms = time_ms(torch, lambda: knn_batch.all_knn_batch(X, **bkw), 20)
+    kfn = lambda: knn_batch.all_knn_batch(X, **bkw)  # noqa: E731
+    ms = time_ms(torch, kfn, 20)
     plain_ms = time_ms(torch, lambda: knn_batch.plain(X, **bkw), 2)
-    b, by = bound_ms(X.numel() * 4 + dk.numel() * 8,
-                     3.0 * N_SERIES * E_FIXED * Lp * Lp)
-    rows_out.append(dict(
-        name="knn_batch", route="cuda",
-        source="src/repro_torch/kernels/csrc/knn_batch.cu",
-        replaces="src/repro/kernels/knn_batch.py:42",
-        max_abs_err=float((dk - dp).abs().max()), ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=None))
+    rows_out.append(kernel_row(
+        "knn_batch", "src/repro_torch/kernels/csrc/knn_batch.cu",
+        "src/repro/kernels/knn_batch.py:42",
+        float((dk - dp).abs().max()), ms, plain_ms,
+        bound_ms(X.numel() * 4 + dk.numel() * 8,
+                 3.0 * N_SERIES * E_FIXED * Lp * Lp), None,
+        device_ms(torch, kfn)))
 
     # lookup_rho: E = 3, k = 4, 154 library tables × 154 targets (xmap),
     # and the own-target form of the ρ(E) sweep on the same tables.
@@ -175,30 +230,195 @@ def main() -> None:
     err = max(err, float((ok_own - op).abs().max()))
     if not err <= RHO_ATOL:
         fail(f"lookup_rho (own target) differs by {err}")
-    ms = time_ms(torch, lambda: lookup.lookup_rho(X, ik, w, offset=off), 20)
+    kfn = lambda: lookup.lookup_rho(X, ik, w, offset=off)  # noqa: E731
+    ms = time_ms(torch, kfn, 20)
     plain_ms = time_ms(torch, lambda: lookup.plain(X, ik, w, offset=off), 2)
-    b, by = bound_ms(ik.numel() * 8 + X.numel() * 4 + rk.numel() * 4,
-                     N_SERIES * N_SERIES * Lp * (2.0 * (E_FIXED + 1) + 8))
-    rows_out.append(dict(
-        name="lookup_rho", route="cuda",
-        source="src/repro_torch/kernels/csrc/lookup_rho.cu",
-        replaces="src/repro/kernels/lookup.py:95",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=None))
-    del dk, ik, dp, ip, w
+    rows_out.append(kernel_row(
+        "lookup_rho", "src/repro_torch/kernels/csrc/lookup_rho.cu",
+        "src/repro/kernels/lookup.py:95", err, ms, plain_ms,
+        bound_ms(ik.numel() * 8 + X.numel() * 4 + rk.numel() * 4,
+                 N_SERIES * N_SERIES * Lp * (2.0 * (E_FIXED + 1) + 8)),
+        None, device_ms(torch, kfn)))
+    return rows_out
+
+
+def check_slice_kernels(torch, X, pairwise_dist, topk, lookup, ref,
+                        lib_caps):
+    """The four kernels of the convergence, significance and per-series
+    simplex path against their plain versions, bit for bit: small edge
+    cases, then the path's shapes (one series, Lp = 1598 at E = 3, k = 4,
+    the convergence caps)."""
+
+    def equal_pair(got, want, what):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"{what} differs from its plain version")
+
+    # Small shapes: tau 2, k up to 70, rows with fewer than k valid
+    # candidates, caps on and across 32-column batches, a single cap, a
+    # cap below k, caps past the last column.
+    xs = X[5, :300].clone()
+    xs[150:190] = xs[10:50]  # a duplicated stretch: exact ties
+    for E, tau in ((1, 1), (3, 2), (20, 1)):
+        if not torch.equal(pairwise_dist.pairwise_distances(xs, E=E, tau=tau),
+                           pairwise_dist.plain(xs, E=E, tau=tau)):
+            fail(f"pairwise_dist differs from its plain version at E={E}, "
+                 f"tau={tau}")
+    Ds = pairwise_dist.plain(xs, E=3, tau=2)
+    for k, mx in ((4, None), (70, None), (70, 30), (1, 0)):
+        equal_pair(topk.topk_select(Ds, k=k, max_idx=mx),
+                   topk.plain_select(Ds, k=k, max_idx=mx),
+                   f"topk_select at k={k}, max_idx={mx}")
+    for k, caps in ((4, (31, 32, 33, 63, 64, 200)), (70, (2, 40, 40, 5000)),
+                    (5, (150,)), (3, (0, 1, 95, 295))):
+        equal_pair(topk.topk_select_sizes(Ds, k=k, max_idxs=caps),
+                   topk.plain_sizes(Ds, k=k, max_idxs=caps),
+                   f"topk_select_sizes at k={k}, caps={caps}")
+    ds, is_ = topk.plain_select(Ds, k=21, max_idx=250)
+    ws = ref.make_weights(ds)
+    is_[::5, -1] = -1  # invalid slots, as derived tables carry them
+    if not torch.equal(lookup.lookup(X[:7, :300], is_, ws, offset=4),
+                       lookup.plain_lookup(X[:7, :300], is_, ws, offset=4)):
+        fail("lookup differs from its plain version (small)")
+
+    # The path's shapes. max_abs_err is 0: equality is checked above.
+    rows_out = []
+
+    def row(name, src, replaces, kfn, pfn, bound, lfn=None):
+        rows_out.append(kernel_row(
+            name, f"src/repro_torch/kernels/csrc/{src}",
+            f"src/repro/kernels/{replaces}", 0.0, time_ms(torch, kfn, 50),
+            time_ms(torch, pfn, 10), bound,
+            None if lfn is None else time_ms(torch, lfn, 50),
+            device_ms(torch, kfn)))
+
+    x = X[0]
+    E, k = E_FIXED, E_FIXED + 1
+    Lp = LENGTH - (E - 1)
+    D = pairwise_dist.pairwise_distances(x, E=E, tau=1)
+    if not torch.equal(D, pairwise_dist.plain(x, E=E, tau=1)):
+        fail("pairwise_dist differs from its plain version at L=1600, E=3")
+    Z = ref.delay_embed(x, E, 1).contiguous()
+    row("pairwise_distances", "pairwise_dist.cu", "pairwise_dist.py:38",
+        lambda: pairwise_dist.pairwise_distances(x, E=E),
+        lambda: pairwise_dist.plain(x, E=E, tau=1),
+        bound_ms(LENGTH * 4 + Lp * Lp * 4, 3.0 * E * Lp * Lp),
+        lambda: torch.cdist(Z, Z))
+
+    mx = Lp - 2  # simplex_predict's cap at Tp = 1
+    dk, ik = topk.topk_select(D, k=k, max_idx=mx)
+    equal_pair((dk, ik), topk.plain_select(D, k=k, max_idx=mx),
+               "topk_select at Lp=1598, k=4")
+    row("topk_select", "topk.cu", "topk.py:39",
+        lambda: topk.topk_select(D, k=k, max_idx=mx),
+        lambda: topk.plain_select(D, k=k, max_idx=mx),
+        bound_ms(Lp * Lp * 4 + Lp * k * 8, float(Lp * Lp)),
+        lambda: torch.topk(D, k, dim=1, largest=False))
+
+    S, last = len(lib_caps), lib_caps[-1]
+    equal_pair(topk.topk_select_sizes(D, k=k, max_idxs=lib_caps),
+               topk.plain_sizes(D, k=k, max_idxs=lib_caps),
+               f"topk_select_sizes at Lp=1598, k=4, caps={lib_caps}")
+    row("topk_select_sizes", "topk.cu", "topk.py:124",
+        lambda: topk.topk_select_sizes(D, k=k, max_idxs=lib_caps),
+        lambda: topk.plain_sizes(D, k=k, max_idxs=lib_caps),
+        bound_ms(Lp * (last + 1) * 4 + S * Lp * k * 8,
+                 float(Lp * (last + 1))))
+
+    rows = Lp - 1  # simplex_predict's rows and offset at Tp = 1
+    off = E
+    Y, ir, wr = x[None], ik[:rows], ref.make_weights(dk)[:rows]
+    if not torch.equal(lookup.lookup(Y, ir, wr, offset=off),
+                       lookup.plain_lookup(Y, ir, wr, offset=off)):
+        fail("lookup differs from its plain version at the simplex shape")
+    row("lookup", "lookup.cu", "lookup.py:46",
+        lambda: lookup.lookup(Y, ir, wr, offset=off),
+        lambda: lookup.plain_lookup(Y, ir, wr, offset=off),
+        bound_ms(LENGTH * 4 + rows * k * 8 + rows * 4, 2.0 * rows * k))
+    return rows_out
+
+
+def run_links(sess, links):
+    """The slice path's link calls on one session → per-link results."""
+    out = []
+    for f, d in links:
+        out.append((sess.ccm(f, d, lib_sizes=LIB_SIZES), sess.ccm(f, d),
+                    sess.surrogate_test(f, d, num_surrogates=NUM_SURROGATES,
+                                        lib_sizes=SURR_SIZES, seed=0)))
+    return out
+
+
+def main() -> None:
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
+        fail("src/repro_torch is missing beside chip_smoke.py")
+    sys.path.insert(0, os.path.join(root, "src"))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+
+    from repro_torch.core.ccm import normalize_lib_sizes
+    from repro_torch.data.timeseries import forced_network_panel
+    from repro_torch.edm import EDM
+    from repro_torch.kernels import (_build, knn_batch, knn_multi_e, lookup,
+                                     pairwise_dist, ref, topk)
+
+    # ---------------------------------------------------------- 1. header
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    dev = torch.device("cuda")
+
+    # ----------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    # --------------------------------------------------------- 3. kernels
+    panel = forced_network_panel(N_SERIES, LENGTH, seed=SEED)[0]
+    X = torch.as_tensor(panel, device=dev)
+    lib_caps, _ = normalize_lib_sizes(LIB_SIZES, Lp=LENGTH - (E_FIXED - 1))
+    rows_out = check_main_path_kernels(torch, X, knn_multi_e, knn_batch,
+                                       lookup, ref)
+    rows_out += check_slice_kernels(torch, X, pairwise_dist, topk, lookup,
+                                    ref, lib_caps)
     for r in rows_out:
         print(json.dumps({"kernel_check": r}))
 
-    # ------------------------------------------------------- 4. main path
     wrappers = {"knn_multi_e": knn_multi_e.all_knn_multi_e,
                 "knn_batch": knn_batch.all_knn_batch,
-                "lookup_rho": lookup.lookup_rho}
-    torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+                "lookup_rho": lookup.lookup_rho,
+                "pairwise_distances": pairwise_dist.pairwise_distances,
+                "topk_select": topk.topk_select,
+                "topk_select_sizes": topk.topk_select_sizes,
+                "lookup": lookup.lookup}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def delta(before):
+        return {n: c - before[n] for n, c in counts().items()
+                if c != before[n]}
+
+    # ------------------------------------------------------- 4. main path
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sess = EDM(panel)
+    sess = EDM(panel, E_max=E_MAX)
     E_opt, rho = sess.optimal_E()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -208,26 +428,36 @@ def main() -> None:
     xm3 = EDM(panel, E=E_FIXED).xmap()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    main_launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    pairs = N_SERIES * N_SERIES
-    print(json.dumps({"main_path": {
-        "optimal_E_s": t1 - t0, "xmap_master_s": t2 - t1,
-        "xmap_fixed_E_s": t3 - t2, "pairs_per_s_master": pairs / (t2 - t1),
-        "pairs_per_s_fixed_E": pairs / (t3 - t2), "peak_bytes": peak,
-        "E_opt_hist": {int(e): int((E_opt == e).sum())
-                       for e in np.unique(E_opt)},
-        "launches": launches}}))
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("knn_multi_e", "knn_batch", "lookup_rho"):
+        if main_launches[name] <= 0:
             fail(f"the main path launched {name} no time")
     for name, m in (("xmap", xm), ("xmap E=3", xm3)):
         if m.shape != (N_SERIES, N_SERIES) or not np.isfinite(m).all():
             fail(f"{name}: shape {m.shape} or non-finite values")
     if rho.shape != (N_SERIES, E_MAX) or not np.isfinite(rho).all():
         fail(f"optimal_E: rho shape {rho.shape} or non-finite values")
+    # The counted run was the warm-up; now RUNS timed runs of each call.
+    t_opt = [host_s(torch, lambda: EDM(panel, E_max=E_MAX).optimal_E())[1]
+             for _ in range(RUNS)]
+    t_xm = [host_s(torch, sess.xmap)[1] for _ in range(RUNS)]
+    t_xm3 = [host_s(torch, lambda: EDM(panel, E=E_FIXED).xmap())[1]
+             for _ in range(RUNS)]
+    pairs = N_SERIES * N_SERIES
+    print(json.dumps({"main_path": {
+        "first_run_s": {"optimal_E": t1 - t0, "xmap_master": t2 - t1,
+                        "xmap_fixed_E": t3 - t2},
+        "optimal_E": spread(t_opt), "xmap_master": spread(t_xm),
+        "xmap_fixed_E": spread(t_xm3),
+        "pairs_per_s_master": pairs / statistics.median(t_xm),
+        "pairs_per_s_fixed_E": pairs / statistics.median(t_xm3),
+        "peak_bytes": peak,
+        "E_opt_hist": {int(e): int((E_opt == e).sum())
+                       for e in np.unique(E_opt)},
+        "launches": {n: c for n, c in main_launches.items() if c}}}))
 
-    sess_r = EDM(panel, impl="ref")
+    sess_r = EDM(panel, E_max=E_MAX, impl="ref")
     E_opt_r, rho_r = sess_r.optimal_E()
     xm_r = sess_r.xmap()
     xm3_r = EDM(panel, E=E_FIXED, impl="ref").xmap()
@@ -246,9 +476,168 @@ def main() -> None:
         if not e <= RHO_ATOL:
             fail(f"{name} differs from the plain run by {e}")
 
+    # ------------------------------------------------------ 5. slice path
+    # The strongest links by the CCM asymmetry: A[j, d] = ρ[j, d] − ρ[d, j]
+    # is the evidence that d drives j (d cross-mapped from j's manifold).
+    A = xm - xm.T
+    np.fill_diagonal(A, -np.inf)
+    links = [(int(f) // N_SERIES, int(f) % N_SERIES)
+             for f in np.argsort(-A, axis=None)[:NUM_LINKS]]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    per_call = {"ccm_sweep": [], "ccm_full": [], "surrogate_test": []}
+    res = []
+    for f, d in links:
+        before = counts()
+        sweep = sess.ccm(f, d, lib_sizes=LIB_SIZES)
+        per_call["ccm_sweep"].append(delta(before))
+        before = counts()
+        full = sess.ccm(f, d)
+        per_call["ccm_full"].append(delta(before))
+        before = counts()
+        sig = sess.surrogate_test(f, d, num_surrogates=NUM_SURROGATES,
+                                  lib_sizes=SURR_SIZES, seed=0)
+        per_call["surrogate_test"].append(delta(before))
+        res.append((sweep, full, sig))
+    before = counts()
+    skill = EDM(panel, E=E_FIXED, cache=False).simplex()
+    per_call["simplex_uncached"] = delta(before)
+    before = counts()
+    E_unc, rho_unc = EDM(panel, E_max=E_MAX, cache=False).optimal_E()
+    per_call["optimal_E_uncached"] = delta(before)
+    torch.cuda.synchronize()
+    slice_launches = counts()
+    slice_peak = torch.cuda.max_memory_allocated()
+
+    # One pairwise and one multi-cap top-k launch per curve grid, however
+    # many sizes; the full-library ccm derives from the master (no kNN).
+    grid = {"pairwise_distances": 1, "topk_select_sizes": 1}
+    for name, n_sizes in (("ccm_sweep", len(LIB_SIZES)),
+                          ("surrogate_test", len(SURR_SIZES))):
+        for c in per_call[name]:
+            if c != dict(grid, lookup_rho=n_sizes):
+                fail(f"{name} launched {c}, not one pairwise and one "
+                     f"multi-cap top-k per curve grid")
+    for c in per_call["ccm_full"]:
+        if c != {"lookup_rho": 1}:
+            fail(f"full-library ccm launched {c}, not one lookup_rho")
+    want = {"pairwise_distances": N_SERIES, "topk_select": N_SERIES,
+            "lookup": N_SERIES}
+    if per_call["simplex_uncached"] != want:
+        fail(f"uncached simplex launched {per_call['simplex_uncached']}")
+    if per_call["optimal_E_uncached"] != {"knn_multi_e": N_SERIES,
+                                          "lookup_rho": N_SERIES * E_MAX}:
+        fail(f"uncached optimal_E launched {per_call['optimal_E_uncached']}")
+    for name in ("pairwise_distances", "topk_select", "topk_select_sizes",
+                 "lookup"):
+        if slice_launches[name] <= 0:
+            fail(f"the slice path launched {name} no time")
+
+    # What comes out: finite curves of the expected shapes, the full-library
+    # ccm equal to the xmap entry it re-derives, E_opt as the cached run's.
+    for (f, d), (sweep, full, sig) in zip(links, res):
+        if sweep.shape != (len(LIB_SIZES),) or not np.isfinite(sweep).all():
+            fail(f"ccm({f}, {d}, lib_sizes=...) gave {sweep}")
+        if not abs(float(full) - float(xm[f, d])) <= RHO_ATOL:
+            fail(f"ccm({f}, {d}) = {full} but xmap has {xm[f, d]}")
+        if sig.surrogate_rho.shape != (len(SURR_SIZES), NUM_SURROGATES) or \
+                not np.isfinite(sig.surrogate_rho).all() or \
+                not ((sig.pvalue > 0) & (sig.pvalue <= 1)).all():
+            fail(f"surrogate_test({f}, {d}) gave a malformed result")
+    if skill.shape != (N_SERIES,) or not np.isfinite(skill).all():
+        fail("uncached simplex: shape or non-finite values")
+    if not (E_unc == E_opt).all():
+        fail(f"uncached optimal_E's E_opt differs from the cached session's "
+             f"in {int((E_unc != E_opt).sum())} series")
+
+    # Timed runs (the counted run was the warm-up).
+    t_calls = {"ccm_sweep": [], "ccm_full": [], "surrogate_test": []}
+    for _ in range(RUNS):
+        for f, d in links:
+            t_calls["ccm_sweep"].append(host_s(
+                torch, lambda: sess.ccm(f, d, lib_sizes=LIB_SIZES))[1])
+            t_calls["ccm_full"].append(host_s(torch,
+                                              lambda: sess.ccm(f, d))[1])
+            t_calls["surrogate_test"].append(host_s(
+                torch, lambda: sess.surrogate_test(
+                    f, d, num_surrogates=NUM_SURROGATES,
+                    lib_sizes=SURR_SIZES, seed=0))[1])
+    t_calls["simplex_uncached"] = [host_s(torch, lambda: EDM(
+        panel, E=E_FIXED, cache=False).simplex())[1] for _ in range(RUNS)]
+    t_calls["optimal_E_uncached"] = [host_s(torch, lambda: EDM(
+        panel, E_max=E_MAX, cache=False).optimal_E())[1] for _ in range(RUNS)]
+    print(json.dumps({"slice_path": {
+        "links": links, "seconds_per_call": {
+            n: spread(v) for n, v in t_calls.items()},
+        "launches_per_call": {
+            "ccm_sweep": per_call["ccm_sweep"][0],
+            "ccm_full": per_call["ccm_full"][0],
+            "surrogate_test": per_call["surrogate_test"][0],
+            "simplex_uncached": per_call["simplex_uncached"],
+            "optimal_E_uncached": per_call["optimal_E_uncached"]},
+        "launches": {n: c for n, c in slice_launches.items() if c},
+        "peak_bytes": slice_peak,
+        "convergence_first_link": [float(v) for v in res[0][0]],
+        "pvalues_first_link": [float(v) for v in res[0][2].pvalue]}}))
+
+    # Where the device time goes: each call once under the profiler.
+    f, d = links[0]
+    print(json.dumps({"device_profile": {
+        "optimal_E": device_profile(
+            torch, lambda: EDM(panel, E_max=E_MAX).optimal_E()),
+        "xmap_master": device_profile(torch, sess.xmap),
+        "xmap_fixed_E": device_profile(
+            torch, lambda: EDM(panel, E=E_FIXED).xmap()),
+        "ccm_sweep": device_profile(
+            torch, lambda: sess.ccm(f, d, lib_sizes=LIB_SIZES)),
+        "ccm_full": device_profile(torch, lambda: sess.ccm(f, d)),
+        "surrogate_test": device_profile(torch, lambda: sess.surrogate_test(
+            f, d, num_surrogates=NUM_SURROGATES, lib_sizes=SURR_SIZES,
+            seed=0)),
+        "simplex_uncached": device_profile(torch, lambda: EDM(
+            panel, E=E_FIXED, cache=False).simplex()),
+        "optimal_E_uncached": device_profile(torch, lambda: EDM(
+            panel, E_max=E_MAX, cache=False).optimal_E())}}))
+
+    # Against the plain versions on the card.
+    res_r = run_links(sess_r, links)
+    rho_err = null_err = 0.0
+    near = 0
+    for (sweep, full, sig), (sw_r, fu_r, sg_r) in zip(res, res_r):
+        rho_err = max(rho_err, float(np.abs(sweep - sw_r).max()),
+                      abs(float(full) - float(fu_r)),
+                      float(np.abs(sig.rho - sg_r.rho).max()))
+        null_err = max(null_err, float(np.abs(sig.surrogate_rho
+                                              - sg_r.surrogate_rho).max()))
+        close = (np.abs(sg_r.surrogate_rho - sg_r.rho[:, None])
+                 <= P_MARGIN).any(axis=1)
+        near += int(close.sum())
+        if not ((sig.pvalue == sg_r.pvalue) | close).all():
+            fail(f"p-values {sig.pvalue} differ from the plain run's "
+                 f"{sg_r.pvalue} away from any near-tie")
+    skill_r = EDM(panel, E=E_FIXED, cache=False, impl="ref").simplex()
+    E_unc_r, rho_unc_r = EDM(panel, E_max=E_MAX, cache=False,
+                              impl="ref").optimal_E()
+    errs = {"ccm_rho": rho_err, "surrogate_null_rho": null_err,
+            "simplex_rho": float(np.abs(skill - skill_r).max()),
+            "optimal_E_uncached_rho": float(np.abs(rho_unc
+                                                   - rho_unc_r).max())}
+    print(json.dumps({"slice_path_vs_plain": dict(
+        errs, pvalue_cells_with_a_null_within_margin=near,
+        pvalue_cells=NUM_LINKS * len(SURR_SIZES),
+        E_opt_equal=bool((E_unc == E_unc_r).all()))}))
+    for name, e in errs.items():
+        if not e <= RHO_ATOL:
+            fail(f"slice path: {name} differs from the plain run by {e}")
+    if not (E_unc == E_unc_r).all():
+        fail("uncached optimal_E: E_opt differs from the plain run")
+
     for r in rows_out:
-        r["launches"] = launches[r["name"]]
-    print(json.dumps({"kernels": rows_out}))
+        r["launches"] = (main_launches if r["name"] in
+                         ("knn_multi_e", "knn_batch", "lookup_rho")
+                         else slice_launches)[r["name"]]
+    print(json.dumps({"kernels": [
+        {k: v for k, v in r.items() if k != "device_ms"} for r in rows_out]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,5 +9,7 @@ library only — never ``jax`` and never ``repro``.
 Entry point: ``from repro_torch.edm import EDM`` — ``EDM(panel)`` binds a
 panel on the GPU (``EDMConfig(device="cuda")`` is the default; a session
 raises when CUDA is absent instead of falling back to the CPU), then
-``optimal_E()`` and ``xmap()`` run kEDM's headline workload.
+``optimal_E()`` and ``xmap()`` run kEDM's headline workload, and
+``ccm(lib, target, lib_sizes=...)`` / ``surrogate_test(lib, target)``
+test one link for convergence and significance.
 """

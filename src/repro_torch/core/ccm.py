@@ -4,16 +4,24 @@ Directionality convention (as in ``repro.core.ccm``): to ask whether
 ``target`` causally forces ``lib``, embed the *library* series, find its
 neighbours, and cross-map the *target*.
 
-Main-path subset of the reference module: ``ccm_group_batched`` cuts the
-library axis into ceil(Nl/B) batches, each one launch of
-``ops.all_knn_batch`` followed by the weights + fused-ρ stage
-(``post_lookup_rho``), double-buffered against host assembly by
-``drive_batched``. Results are bit-invariant in B.
+Two engines:
+
+* the convergence engine — ``ccm_convergence`` / ``cross_map``: one
+  ``pairwise_distances`` launch and one multi-cap ``topk_select_sizes``
+  launch give every library-size table of a curve grid, then one fused
+  lookup-ρ per size (``cross_map_sizes_seed`` is the per-size re-scan it
+  replaces, kept as the baseline);
+* the all-pairs engine — ``ccm_group_batched`` cuts the library axis into
+  ceil(Nl/B) batches, each one launch of ``ops.all_knn_batch`` followed by
+  the weights + fused-ρ stage (``post_lookup_rho``), double-buffered
+  against host assembly by ``drive_batched``. Results are bit-invariant
+  in B.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -21,6 +29,141 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core.embedding import embed_offset, num_embedded, pred_rows
 from repro_torch.kernels import ops
+
+def normalize_lib_sizes(lib_sizes, *, Lp: int, Tp: int = 0):
+    """Validate a convergence-sweep size list → (caps, inverse map).
+
+    ``caps`` is the ascending tuple of unique inclusive neighbour-index
+    caps (``min(size − 1, Lp − 1 − Tp)``); ``inv`` maps each requested size
+    to its cap's position. Sizes must be >= 1 (ValueError otherwise);
+    unsorted, duplicate or oversized (> the Lp − Tp usable library points)
+    sizes are accepted with one ``UserWarning`` naming what was cleaned.
+    """
+    sizes = [int(s) for s in lib_sizes]
+    if not sizes:
+        raise ValueError("lib_sizes must not be empty")
+    bad = [s for s in sizes if s < 1]
+    if bad:
+        raise ValueError(f"lib_sizes must all be >= 1, got {bad}")
+    hard_max = Lp - 1 - max(Tp, 0)
+    issues = []
+    if any(b < a for a, b in zip(sizes, sizes[1:])):
+        issues.append("unsorted (computed on the sorted unique caps)")
+    if len(set(sizes)) != len(sizes):
+        issues.append("duplicates (each cap computed once)")
+    over = [s for s in sizes if s - 1 > hard_max]
+    if over:
+        issues.append(
+            f"sizes {over} exceed the {hard_max + 1} usable library "
+            f"points (clamped)")
+    if issues:
+        warnings.warn(
+            f"lib_sizes {tuple(sizes)}: " + "; ".join(issues),
+            UserWarning, stacklevel=3)
+    caps_all = [min(s - 1, hard_max) for s in sizes]
+    caps = tuple(sorted(set(caps_all)))
+    inv = np.asarray([caps.index(c) for c in caps_all], np.int32)
+    return caps, inv
+
+
+def ccm_convergence_caps(lib, targets, *, E, tau, Tp, caps, exclude_self,
+                         impl) -> torch.Tensor:
+    """(|caps|, Nt) curve grid: one distance launch, one multi-cap top-k,
+    then one fused lookup-ρ per cap. ``caps`` are normalized ascending
+    caps (``normalize_lib_sizes``)."""
+    L = lib.shape[-1]
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    D = ops.pairwise_distances(lib, E=E, tau=tau, impl=impl)
+    dS, iS = ops.topk_select_sizes(D, k=E + 1, max_idxs=caps,
+                                   exclude_self=exclude_self, impl=impl)
+    curves = []
+    for s in range(len(caps)):
+        w = ops.make_weights(dS[s])
+        curves.append(ops.lookup_rho(targets, iS[s, :rows], w[:rows],
+                                     offset=off, impl=impl))
+    return torch.stack(curves)
+
+
+def ccm_convergence(lib: torch.Tensor, targets: torch.Tensor, *, E: int,
+                    tau: int = 1, Tp: int = 0, lib_sizes,
+                    exclude_self: bool = True,
+                    impl: str = "auto") -> torch.Tensor:
+    """Full CCM convergence curve grid → (num_sizes, Nt) ρ.
+
+    One ``pairwise_distances`` launch and ONE multi-cap
+    ``topk_select_sizes`` launch give every library-prefix table, whatever
+    the number of sizes; ρ rising with library size is CCM's causality
+    criterion. ``lib_sizes`` follows the caller's order (duplicates and
+    oversized sizes computed once / clamped, with a warning). Equals the
+    per-size loop ``cross_map_sizes_seed``.
+    """
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    Lp = num_embedded(lib.shape[-1], E, tau)
+    caps, inv = normalize_lib_sizes(lib_sizes, Lp=Lp, Tp=Tp)
+    curves = ccm_convergence_caps(lib, targets, E=E, tau=tau, Tp=Tp,
+                                  caps=caps, exclude_self=exclude_self,
+                                  impl=impl)
+    return curves[torch.as_tensor(inv, device=curves.device).long()]
+
+
+def cross_map_sizes_seed(lib: torch.Tensor, targets: torch.Tensor, *, E: int,
+                         tau: int = 1, Tp: int = 0, lib_sizes,
+                         exclude_self: bool = True,
+                         impl: str = "auto") -> torch.Tensor:
+    """The per-size convergence loop → (num_sizes, Nt) ρ: one full
+    ``topk_select`` re-scan of the distance matrix per library size. The
+    baseline that ``ccm_convergence`` replaces."""
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    L = lib.shape[-1]
+    Lp = num_embedded(L, E, tau)
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    hard_max = Lp - 1 - max(Tp, 0)
+    D = ops.pairwise_distances(lib, E=E, tau=tau, impl=impl)
+
+    def rho_for(max_idx):
+        d, i = ops.topk_select(D, k=E + 1, exclude_self=exclude_self,
+                               max_idx=max_idx, impl=impl)
+        w = ops.make_weights(d)
+        return ops.lookup_rho(targets, i[:rows], w[:rows], offset=off,
+                              impl=impl)
+
+    return torch.stack([rho_for(min(int(s) - 1, hard_max))
+                        for s in lib_sizes])
+
+
+def cross_map(lib: torch.Tensor, targets: torch.Tensor, *, E: int,
+              tau: int = 1, Tp: int = 0, lib_sizes=None,
+              exclude_self: bool = True,
+              impl: str = "auto") -> torch.Tensor:
+    """Cross-map skill of predicting each target from ``lib``'s manifold.
+
+    targets: (Nt, L) (a 1-D series is promoted). Returns (Nt,) ρ, or
+    (num_sizes, Nt) when ``lib_sizes`` is given (the convergence sweep,
+    through ``ccm_convergence``); a 1-D target drops its axis.
+    """
+    squeeze = targets.ndim == 1
+    if squeeze:
+        targets = targets[None, :]
+    if lib_sizes is not None:
+        curves = ccm_convergence(
+            lib, targets, E=E, tau=tau, Tp=Tp, lib_sizes=lib_sizes,
+            exclude_self=exclude_self, impl=impl)
+        return curves[:, 0] if squeeze else curves
+    L = lib.shape[-1]
+    Lp = num_embedded(L, E, tau)
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    D = ops.pairwise_distances(lib, E=E, tau=tau, impl=impl)
+    d, i = ops.topk_select(D, k=E + 1, exclude_self=exclude_self,
+                           max_idx=Lp - 1 - max(Tp, 0), impl=impl)
+    w = ops.make_weights(d)
+    rho = ops.lookup_rho(targets, i[:rows], w[:rows], offset=off, impl=impl)
+    return rho[0] if squeeze else rho
+
 
 #: Default memory budgets (MB) for the library-batched engine's in-flight
 #: (B, Lp, Lp) float32 distance stack of the plain path (the CUDA kernels
@@ -168,3 +311,23 @@ def ccm_group_batched(libs: torch.Tensor, targets: torch.Tensor, *, E: int,
     launch = make_group_launch(libs, targets, E=E, tau=tau, Tp=Tp, k=kk,
                                impl=impl)
     return drive_batched(Nl, B, launch)
+
+
+def ccm_matrix(X, E_opt=None, *, tau: int = 1, Tp: int = 0,
+               impl: str = "auto", device: str = "cuda") -> np.ndarray:
+    """All-pairs CCM skill matrix (N_lib, N_target), a thin wrapper over
+    ``repro_torch.edm.EDM.xmap``: entry (l, t) cross-maps series t from
+    series l's manifold at t's optimal E (computed when ``E_opt`` is
+    None). Prefer a session, which keeps its kNN master across calls."""
+    from repro_torch.edm import EDM, EDMConfig
+
+    X = np.asarray(X, np.float32)
+    if E_opt is not None:
+        E_opt = np.asarray(E_opt, dtype=np.int32)
+        if E_opt.shape != (X.shape[0],):
+            raise ValueError(
+                f"E_opt must be ({X.shape[0]},), got {E_opt.shape}")
+    sess = EDM(X, EDMConfig(tau=tau, Tp_cross=Tp, impl=impl, device=device,
+                            E_max=int(np.max(E_opt)) if E_opt is not None
+                            else 20))
+    return sess.xmap(method="simplex", E_opt=E_opt)

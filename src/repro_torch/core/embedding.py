@@ -2,12 +2,13 @@
 
 Embedded point ``i`` has components ``x[i + k*tau], k in [0, E)`` and
 corresponds to *time* ``t = i + (E-1)*tau``; ``Lp = L - (E-1)*tau``.
-The distance kernels fuse the embedding, so nothing here materializes it.
+The distance kernels fuse the embedding; ``delay_embed`` materializes it
+for tests and yardsticks.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.ref import num_embedded  # noqa: F401
+from repro_torch.kernels.ref import delay_embed, num_embedded  # noqa: F401
 
 
 def embed_offset(E: int, tau: int, Tp: int = 0) -> int:

@@ -2,9 +2,11 @@
 
 * ``EDMConfig`` — frozen, validated hyperparameters (with ``device``).
 * ``Dataset``  — a screened (N, L) panel on the session's device.
-* ``EDM``      — the session: ``optimal_E`` / ``simplex`` / ``ccm_batch``
-  / ``xmap`` / ``submit_panel``, each dispatched through a ``Plan`` that
-  reuses the session's cached multi-E kNN master.
+* ``EDM``      — the session: ``optimal_E`` / ``simplex`` / ``ccm`` /
+  ``surrogate_test`` / ``ccm_batch`` / ``xmap`` / ``submit_panel``, each
+  dispatched through a ``Plan`` that reuses the session's cached multi-E
+  kNN master.
+* ``make_surrogates`` — null ensembles for ``EDM.surrogate_test``.
 * ``carry_session_cache`` — install a reference session's master and
   optimal-E sweep in a port session.
 """
@@ -13,8 +15,9 @@ from repro_torch.edm.carry import carry_session_cache
 from repro_torch.edm.config import DEFAULT_THETAS, INVALID_POLICIES, EDMConfig
 from repro_torch.edm.dataset import Dataset, screen_panel
 from repro_torch.edm.plan import Plan
-from repro_torch.edm.session import EDM, PanelResult
+from repro_torch.edm.session import EDM, PanelResult, SurrogateResult
+from repro_torch.edm.surrogates import make_surrogates
 
 __all__ = ["DEFAULT_THETAS", "EDM", "EDMConfig", "Dataset",
-           "INVALID_POLICIES", "PanelResult", "Plan", "carry_session_cache",
-           "screen_panel"]
+           "INVALID_POLICIES", "PanelResult", "Plan", "SurrogateResult",
+           "carry_session_cache", "make_surrogates", "screen_panel"]

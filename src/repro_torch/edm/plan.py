@@ -109,6 +109,12 @@ def _gathered_dists_batch(X, idx, ok, *, E, tau):
     return torch.where(ok, sqrt_rn(acc), float("inf"))
 
 
+def _gathered_dists(x, idx, ok, *, E, tau):
+    """``_gathered_dists_batch`` for one series: x (L,), idx/ok (rows, k)."""
+    return _gathered_dists_batch(x[None], idx[None], ok[None], E=E,
+                                 tau=tau)[0]
+
+
 # ------------------------------------------------ cached-table functions
 
 
@@ -154,6 +160,30 @@ def master_slack_covers(caps, *, Lp: int, k: int, k_master: int) -> bool:
     candidate, so the master needs ``k_master >= k + (Lp − 1 − min(caps))``.
     """
     return k_master >= k + (Lp - 1 - min(caps))
+
+
+def ccm_convergence_from_master(x, iM_E, targets, *, E, tau, Tp, caps, k,
+                                impl):
+    """Convergence curve grid from cached master indices → (|caps|, Nt).
+
+    The cached-session counterpart of ``core.ccm.ccm_convergence``: each
+    library cap's table is derived from ONE master index level (callers
+    check ``master_slack_covers`` first) and only the k selected distances
+    are recomputed — no pairwise pass, no top-k launch.
+    """
+    L = x.shape[-1]
+    Lp = num_embedded(L, E, tau)
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    iE = iM_E[:Lp]
+    curves = []
+    for m in caps:
+        ik, ok = _derive_idx(iE, k=k, max_idx=m)
+        d = _gathered_dists(x, ik, ok, E=E, tau=tau)
+        w = ops.make_weights(d)
+        curves.append(ops.lookup_rho(targets, ik[:rows], w[:rows],
+                                     offset=off, impl=impl))
+    return torch.stack(curves)
 
 
 def _master_group_step(Xb, iMb, targets, *, E, tau, Tp, k, impl):

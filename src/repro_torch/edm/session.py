@@ -6,12 +6,18 @@ Bind a panel and a config once::
     E_opt, rho = sess.optimal_E()      # one multi-E kNN launch, cached
     skill = sess.simplex()             # read off the cached sweep
     causal = sess.xmap()               # reuses the SAME kNN master tables
+    curve = sess.ccm(0, 1, lib_sizes=(50, 200, 500))  # convergence sweep
+    sig = sess.surrogate_test(0, 1)    # CCM significance vs a null ensemble
 
 Every method builds a ``Plan`` (``sess.plan(task)`` shows it), then runs
 it. The multi-E kNN master built by ``optimal_E`` is held in the session
-and reused by ``simplex``/``xmap``/``ccm_batch``; a fixed-E session's
-first ``xmap`` takes the direct batched engine instead
-(``core.ccm.make_group_launch``).
+and reused by ``simplex``/``xmap``/``ccm_batch``/``ccm``; a fixed-E
+session's first ``xmap`` takes the direct batched engine instead
+(``core.ccm.make_group_launch``), and a ``ccm`` sweep whose library caps
+the master's slack cannot cover runs one pass of the convergence engine
+(``core.ccm.ccm_convergence_caps``). ``cache=False`` sessions hold no
+master: ``optimal_E`` and ``simplex`` run the per-series primitives of
+``core.simplex``.
 
 Methods of ``repro.edm.EDM`` that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -26,13 +32,16 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core.ccm import (auto_batch_libs, drive_batched,
-                                  make_group_launch)
+from repro_torch.core.ccm import (auto_batch_libs, ccm_convergence_caps,
+                                  drive_batched, make_group_launch,
+                                  normalize_lib_sizes)
 from repro_torch.core.embedding import num_embedded
+from repro_torch.core.simplex import optimal_E_batch, simplex_skill
 from repro_torch.edm.config import EDMConfig
 from repro_torch.edm.dataset import Dataset
 from repro_torch.edm.plan import (
     Plan,
+    ccm_convergence_from_master,
     ccm_group_from_master_batched,
     make_master_group_launch,
     master_group_batch_bytes,
@@ -41,6 +50,7 @@ from repro_torch.edm.plan import (
     rho_curves_from_master,
     simplex_skill_from_master,
 )
+from repro_torch.edm.surrogates import make_surrogates
 
 
 def _not_ported(what: str, item: str):
@@ -69,6 +79,22 @@ def session_device(config: EDMConfig) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@dataclasses.dataclass
+class SurrogateResult:
+    """Outcome of one ``EDM.surrogate_test``: score, null ensemble, p."""
+
+    rho: float | np.ndarray            # actual skill ((S,) with lib_sizes)
+    surrogate_rho: np.ndarray          # (M,) or (S, M) null ensemble skills
+    pvalue: float | np.ndarray         # rank-based, (1 + #{null ≥ ρ})/(1 + M)
+    method: str
+    num_surrogates: int
+
+    @property
+    def significant(self) -> bool | np.ndarray:
+        """p < 0.05 (per size when a convergence sweep was run)."""
+        return self.pvalue < 0.05
 
 
 @dataclasses.dataclass
@@ -161,22 +187,35 @@ class EDM:
                 E=f"sweep:1..{c.E_max}", Tp=c.Tp,
                 reuse=(("rho",) if have_rho else
                        ("master",) if (cached and have_master) else ()),
-                builds=() if have_rho else ("master", "rho"),
-                detail="derive per-E tables from kNN master")
+                builds=() if have_rho else (
+                    ("master", "rho") if cached else ("rho",)),
+                detail=("derive per-E tables from kNN master" if cached
+                        else "per-series optimal_E_batch, one multi-E "
+                             "launch per series"))
         if task == "simplex":
             fixed = E or c.E
+            if not fixed:
+                reuse, detail = ("rho",), "skill read off the cached ρ(E) sweep"
+            elif cached:
+                reuse, detail = ("master",), ("indices from kNN master, k "
+                                              "distances recomputed")
+            else:
+                reuse, detail = (), ("per-series simplex_skill: pairwise, "
+                                     "top-k and lookup launches per series")
             return Plan(
                 task=task, impl=impl, placement="local",
                 E=f"fixed:{fixed}" if fixed else "per-series", Tp=c.Tp,
-                reuse=("master",) if fixed else ("rho",), builds=(),
-                detail=("indices from kNN master, k distances recomputed"
-                        if fixed else "skill read off the cached ρ(E) sweep"))
+                reuse=reuse, builds=(), detail=detail)
         if task == "ccm":
             return Plan(
                 task=task, impl=impl, placement="local",
                 E=f"fixed:{E or c.E}" if (E or c.E) else "per-series",
-                Tp=c.Tp_cross, reuse=("master",), builds=(),
-                detail="library-batched lookups on cached kNN master")
+                Tp=c.Tp_cross,
+                reuse=(("master",) if (cached and have_master) else ())
+                + (() if (E or c.E) else ("rho",)), builds=(),
+                detail="sweep: capped tables from kNN master when "
+                       "k_master slack covers, else one-pass multi-cap "
+                       "convergence engine (pairwise + multi-cap top-k)")
         if task == "xmap":
             hit = self._cache.get("master")
             levels = (c.E if c.E else
@@ -238,16 +277,17 @@ class EDM:
 
     def _run_optimal_E(self) -> tuple[np.ndarray, np.ndarray]:
         c = self.config
-        if not c.cache:
-            raise _not_ported("optimal_E without a session cache "
-                              "(core.simplex.optimal_E_batch)",
-                              "3 (core/simplex.py)")
-        dM, iM, _, _ = self._master(c.E_max)
-        rho = rho_curves_from_master(
-            self.data.panel, dM[:, :c.E_max], iM[:, :c.E_max],
-            E_max=c.E_max, tau=c.tau, Tp=c.Tp, impl=self._impl)
-        rho = rho.cpu().numpy()
-        E_opt = (np.argmax(rho, axis=1) + 1).astype(np.int32)
+        if c.cache:
+            dM, iM, _, _ = self._master(c.E_max)
+            rho = rho_curves_from_master(
+                self.data.panel, dM[:, :c.E_max], iM[:, :c.E_max],
+                E_max=c.E_max, tau=c.tau, Tp=c.Tp, impl=self._impl)
+            rho = rho.cpu().numpy()
+            E_opt = (np.argmax(rho, axis=1) + 1).astype(np.int32)
+        else:
+            E_opt, rho = optimal_E_batch(self.data.panel, E_max=c.E_max,
+                                         tau=c.tau, Tp=c.Tp, impl=self._impl)
+            E_opt, rho = E_opt.cpu().numpy(), rho.cpu().numpy()
         bad = self._invalid
         if bad is not None:
             # Masked-invalid series: pin E to 1 (a deterministic group)
@@ -286,9 +326,10 @@ class EDM:
                 E_opt, rho = self._rho()
                 return rho[np.arange(self.data.N), E_opt - 1].copy()
             if not c.cache:
-                raise _not_ported("simplex without a session cache "
-                                  "(core.simplex.simplex_skill)",
-                                  "3 (core/simplex.py)")
+                return self._mask_rows(torch.stack([
+                    simplex_skill(x, E=E, tau=c.tau, Tp=c.Tp,
+                                  impl=self._impl)
+                    for x in self.data.panel]).cpu().numpy())
             _, iM, _, _ = self._master(E)
             return self._mask_rows(simplex_skill_from_master(
                 self.data.panel, iM[:, E - 1], E=E, tau=c.tau, Tp=c.Tp,
@@ -299,13 +340,121 @@ class EDM:
     def smap(self, *args, **kwargs):
         raise _not_ported("EDM.smap", "6 (S-Map)")
 
-    def ccm(self, *args, **kwargs):
-        raise _not_ported("EDM.ccm (lib_sizes= convergence sweeps)",
-                          "5 (Convergence and significance)")
+    def _resolve_pair_E(self, target_index: int, E: int | None) -> int:
+        """E for a pairwise call: arg > config > target's cached optimum."""
+        if E is None:
+            E = self.config.E
+        if E is None:
+            E_opt, _ = self._rho()
+            E = int(E_opt[target_index])
+        return int(E)
 
-    def surrogate_test(self, *args, **kwargs):
-        raise _not_ported("EDM.surrogate_test",
-                          "5 (Convergence and significance)")
+    def ccm(self, lib, target, *, lib_sizes=None,
+            E: int | None = None) -> np.ndarray:
+        """Convergent cross mapping between two panel series.
+
+        Embeds series ``lib``'s manifold and cross-maps ``target`` (high
+        skill = evidence "target causes lib"). ``lib_sizes`` returns the
+        convergence curve — ρ rising with library size is CCM's causality
+        criterion. E defaults to the target's cached optimal E.
+
+        A sweep never re-scans per size: when the cached kNN master's
+        slack covers every cap (``master_slack_covers``) the per-size
+        tables are derived from it with no kNN launch, otherwise one
+        pairwise and one multi-cap top-k launch serve all sizes.
+        """
+        li = self.data.index_of(lib)
+        ti = self.data.index_of(target)
+        if self._pair_invalid(li, ti):  # masked series: NaN, no engine run
+            if lib_sizes is None:
+                return np.float32(np.nan)
+            return np.full(len(tuple(lib_sizes)), np.nan, np.float32)
+        E = self._resolve_pair_E(ti, E)
+        with telemetry.span("session.ccm", lib=li, target=ti, E=E,
+                            sweep=lib_sizes is not None):
+            self._plan_event("ccm")
+            curves = self._ccm_curves(li, self.data.panel[ti][None, :], E=E,
+                                      lib_sizes=self._lib_sizes(E, lib_sizes))
+        return curves[0, 0] if lib_sizes is None else curves[:, 0]
+
+    def _lib_sizes(self, E: int, lib_sizes):
+        """The sizes asked for, or the one full usable library."""
+        if lib_sizes is not None:
+            return lib_sizes
+        Lp = num_embedded(self.data.L, E, self.config.tau)
+        return (Lp - max(self.config.Tp_cross, 0),)
+
+    def _ccm_curves(self, li: int, targets, *, E: int,
+                    lib_sizes) -> np.ndarray:
+        """(num_sizes, Nt) convergence grid against library ``li``.
+
+        Derived from the cached master when its slack covers every cap,
+        else one pass of the convergence engine. k is the simplex default
+        E + 1, whatever ``config.k`` says.
+        """
+        c = self.config
+        x = self.data.panel[li]
+        Lp = num_embedded(self.data.L, E, c.tau)
+        caps, inv = normalize_lib_sizes(lib_sizes, Lp=Lp, Tp=c.Tp_cross)
+        k = E + 1
+        hit = self._cache.get("master")
+        if (c.cache and hit is not None and hit[3] >= E
+                and master_slack_covers(caps, Lp=Lp, k=k, k_master=hit[2])):
+            self._bump("knn_master_hits")
+            curves = ccm_convergence_from_master(
+                x, hit[1][li, E - 1], targets, E=E, tau=c.tau,
+                Tp=c.Tp_cross, caps=caps, k=k, impl=self._impl)
+        else:
+            curves = ccm_convergence_caps(
+                x, targets, E=E, tau=c.tau, Tp=c.Tp_cross, caps=caps,
+                exclude_self=True, impl=self._impl)
+        return curves.cpu().numpy()[inv]
+
+    def surrogate_test(self, lib, target, *, num_surrogates: int = 100,
+                       method: str = "shuffle", period: int | None = None,
+                       lib_sizes=None, E: int | None = None,
+                       seed: int = 0) -> SurrogateResult:
+        """CCM significance: rank the real skill against a null ensemble.
+
+        Makes ``num_surrogates`` null versions of ``target``
+        (``edm.surrogates``) and cross-maps all of them with the real
+        series as one (M+1)-target curve grid, sharing the library's
+        neighbour tables. Returns a ``SurrogateResult`` with the one-sided
+        rank p-value ``(1 + #{ρ_null ≥ ρ}) / (1 + M)`` (per size when
+        ``lib_sizes`` is given).
+        """
+        li = self.data.index_of(lib)
+        ti = self.data.index_of(target)
+        if self._pair_invalid(li, ti):  # masked series: NaN verdict
+            if lib_sizes is None:
+                return SurrogateResult(
+                    float("nan"),
+                    np.full(num_surrogates, np.nan, np.float32),
+                    float("nan"), method, num_surrogates)
+            S = len(tuple(lib_sizes))
+            return SurrogateResult(
+                np.full(S, np.nan, np.float32),
+                np.full((S, num_surrogates), np.nan, np.float32),
+                np.full(S, np.nan), method, num_surrogates)
+        E = self._resolve_pair_E(ti, E)
+        with telemetry.span("session.surrogate_test", lib=li, target=ti,
+                            E=E, M=num_surrogates, method=method):
+            y = self.data.panel[ti]
+            surr = make_surrogates(y.cpu().numpy(), num_surrogates,
+                                   method=method, period=period, seed=seed)
+            targets = torch.cat([y[None, :],
+                                 torch.as_tensor(surr, device=self.device)])
+            curves = self._ccm_curves(li, targets, E=E,
+                                      lib_sizes=self._lib_sizes(E, lib_sizes))
+        rho = curves[:, 0]
+        null = curves[:, 1:]
+        pval = ((1.0 + (null >= rho[:, None]).sum(axis=1))
+                / (1.0 + num_surrogates))
+        self._bump("surrogate_tests")
+        if lib_sizes is None:
+            return SurrogateResult(float(rho[0]), null[0], float(pval[0]),
+                                   method, num_surrogates)
+        return SurrogateResult(rho, null, pval, method, num_surrogates)
 
     def append(self, delta):
         raise _not_ported("EDM.append", "8 (Append and serving)")
@@ -315,7 +464,9 @@ class EDM:
 
         One library-batched master-derived launch per call; a pair's ρ is
         the same whatever other pairs share its batch (batch invariance).
-        Pairs touching masked-invalid series come back NaN.
+        Pairs touching masked-invalid series come back NaN. Without a
+        covering cached master (``cache=False``, or a master whose slack
+        the horizon exhausts) each pair runs through ``ccm``.
         """
         c = self.config
         E = int(E)
@@ -332,9 +483,9 @@ class EDM:
         hit = self._master(E) if c.cache else None
         if hit is None or not master_slack_covers(
                 (cap,), Lp=Lp, k=k, k_master=hit[2]):
-            raise _not_ported("ccm_batch without a covering kNN master "
-                              "(per-pair EDM.ccm)",
-                              "5 (Convergence and significance)")
+            for j, li, ti in live:
+                out[j] = self.ccm(li, ti, E=E)
+            return out
         libs = sorted({li for _, li, _ in live})
         lpos = {li: i for i, li in enumerate(libs)}
         la = torch.as_tensor(libs, device=self.device)

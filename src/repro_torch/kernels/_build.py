@@ -23,13 +23,15 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("knn_multi_e", "knn_batch", "lookup_rho")
+#: One shared library per ``csrc/<name>.cu``.
+KERNELS = ("knn_multi_e", "knn_batch", "lookup_rho", "lookup",
+           "pairwise_dist", "topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_entries: dict = {}  # kernel name → its loaded C launch function
+_entries: dict = {}  # launch function name → the loaded C function
 
 
 def nvcc() -> str:
@@ -96,31 +98,37 @@ def build_all() -> dict[str, str]:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: Launch function name → (library, C argument types).
 _SIGNATURES = {
-    "knn_multi_e": ("knn_multi_e_launch",
-                    [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P,
-                     _P]),
-    "knn_batch": ("knn_batch_launch",
-                  [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "lookup_rho": ("lookup_rho_launch",
-                   [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _P, _P]),
+    "knn_multi_e_launch": ("knn_multi_e",
+                           [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                            _P, _P, _P]),
+    "knn_batch_launch": ("knn_batch",
+                         [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "lookup_rho_launch": ("lookup_rho",
+                          [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P, _P]),
+    "lookup_launch": ("lookup", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P]),
+    "pairwise_dist_launch": ("pairwise_dist", [_P, _I, _I, _I, _P, _P]),
+    "topk_select_launch": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "topk_sizes_launch": ("topk",
+                          [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 
-def entry(name: str):
-    """The C launch function of kernel ``name`` (built on first use)."""
+def entry(fn_name: str):
+    """The C launch function ``fn_name`` (its library built on first use)."""
     with _lock:
-        fn = _entries.get(name)
+        fn = _entries.get(fn_name)
         if fn is None:
-            path = build_dir() / f"lib{name}.so"
+            lib, argtypes = _SIGNATURES[fn_name]
+            path = build_dir() / f"lib{lib}.so"
             if not path.exists():
                 build_all()
-            fn_name, argtypes = _SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(path)), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _entries[name] = fn
+            _entries[fn_name] = fn
     return fn
 
 

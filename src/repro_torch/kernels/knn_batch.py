@@ -42,7 +42,7 @@ def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
     out_i = torch.empty((B, Lp, k), dtype=torch.int32, device=X.device)
     if B == 0:
         return out_d, out_i
-    fn = _build.entry("knn_batch")
+    fn = _build.entry("knn_batch_launch")
     with torch.cuda.device(X.device):
         err = fn(Xc.data_ptr(), B, L, E, tau, k, mx, int(exclude_self),
                  WARPS_PER_BLOCK, out_d.data_ptr(), out_i.data_ptr(),

@@ -67,7 +67,7 @@ def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
         return out_d, out_i
     ks_a = (ctypes.c_int * E_max)(*ks)
     mxs_a = (ctypes.c_int * E_max)(*mxs)
-    fn = _build.entry("knn_multi_e")
+    fn = _build.entry("knn_multi_e_launch")
     with torch.cuda.device(X.device):
         err = fn(xpad.data_ptr(), N, L, Lx, E_max, tau, ks_a, mxs_a, k_max,
                  int(exclude_self), WARPS_PER_BLOCK, chunk, out_d.data_ptr(),

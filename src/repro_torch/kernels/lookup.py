@@ -1,10 +1,17 @@
-"""CUDA kernel: fused simplex lookup + Pearson ρ for a batch of tables.
+"""CUDA kernels: the simplex lookup, and the fused lookup + Pearson ρ for a
+batch of tables.
 
-Port of ``repro/kernels/lookup.py::lookup_rho`` (Pallas ``_kernel_rho``
-with ``_gather_tile``). The TPU wrapper takes one (rows, k) table per
-call; the session would then launch once per series and E (3,080 calls
-for ``optimal_E`` at N = 154, E_max = 20), so this wrapper takes a
-batch of B tables in one launch, in two forms:
+``lookup`` ports ``repro/kernels/lookup.py::lookup`` (Pallas
+``_kernel_lookup``; paper Algorithm 3): (N, rows) predictions from one
+(rows, k) table, bit-equal to its plain version ``plain_lookup``
+(``kernels.ref.lookup``, a fixed-order k-sum). Design and bound:
+``csrc/lookup.cu``.
+
+``lookup_rho`` ports ``repro/kernels/lookup.py::lookup_rho`` (Pallas
+``_kernel_rho`` with ``_gather_tile``). The TPU wrapper takes one
+(rows, k) table per call; the session would then launch once per series
+and E (3,080 calls for ``optimal_E`` at N = 154, E_max = 20), so this
+wrapper takes a batch of B tables in one launch, in two forms:
 
 * all targets — (B, rows, k) tables against (Nt, L) targets → (B, Nt);
 * own target  — (B, rows, k) tables against (B, L) series, table b
@@ -26,6 +33,7 @@ from repro_torch.kernels import ref as _ref
 
 plain = _ref.lookup_rho_batch
 plain_own = _ref.lookup_rho_own
+plain_lookup = _ref.lookup
 
 _THREADS = 256
 
@@ -71,7 +79,7 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
         Yc = Y.float().t().contiguous()
         sn, sc = 1, Nt
     tn, tj = _block(Nt, own)
-    fn = _build.entry("lookup_rho")
+    fn = _build.entry("lookup_rho_launch")
     with torch.cuda.device(Y.device):
         err = fn(Yc.data_ptr(), sn, sc, L, Nt, idx_c.data_ptr(),
                  w_c.data_ptr(), B, rows, k, int(offset), int(own), tn, tj,
@@ -82,3 +90,36 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
 
 
 lookup_rho.launches = 0
+
+
+def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+           offset: int = 0) -> torch.Tensor:
+    """(N, L) CUDA targets, (rows, k) table → (N, rows) predictions."""
+    if Y.device.type != "cuda":
+        raise ValueError(f"lookup kernel needs CUDA tensors, got {Y.device}")
+    if idx.ndim != 2 or w.shape != idx.shape:
+        raise ValueError(f"idx and w must be (rows, k) alike, got "
+                         f"{tuple(idx.shape)} and {tuple(w.shape)}")
+    if Y.ndim != 2:
+        raise ValueError(f"Y must be (N, L), got {tuple(Y.shape)}")
+    N, L = Y.shape
+    rows, k = idx.shape
+    if k < 1:
+        raise ValueError("the table needs k >= 1 neighbours")
+    out = torch.empty((N, rows), dtype=torch.float32, device=Y.device)
+    if N == 0 or rows == 0:
+        return out
+    Yc = Y.float().contiguous()
+    idx_c = idx.to(torch.int32).contiguous()
+    w_c = w.float().contiguous()
+    fn = _build.entry("lookup_launch")
+    with torch.cuda.device(Y.device):
+        err = fn(Yc.data_ptr(), L, N, idx_c.data_ptr(), w_c.data_ptr(), rows,
+                 k, int(offset), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lookup")
+    lookup.launches += 1
+    return out
+
+
+lookup.launches = 0

@@ -17,12 +17,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch import telemetry
-from repro_torch.kernels import knn_batch, knn_multi_e, lookup
+from repro_torch.kernels import knn_batch, knn_multi_e, pairwise_dist, topk
+from repro_torch.kernels import lookup as _lookup_k
 from repro_torch.kernels import ref as _ref
 
 make_weights = _ref.make_weights
 pearson_rows = _ref.pearson_rows
 num_embedded = _ref.num_embedded
+delay_embed = _ref.delay_embed
 
 #: Every implementation name the dispatch layer accepts.
 IMPLS = ("auto", "ref")
@@ -44,6 +46,83 @@ def _tel(op: str, kernel: bool, **attrs) -> None:
     if telemetry.active():
         telemetry.event(f"ops.{op}", impl="cuda" if kernel else "ref",
                         **attrs)
+
+
+def _no_variant(variant: str) -> None:
+    if variant == "mxu":
+        raise NotImplementedError(
+            "variant='mxu' (the matrix-unit distance kernel) is not ported "
+            "yet: ROADMAP queue 2, item 6")
+    if variant != "vpu":
+        raise ValueError(f"unknown variant {variant!r}; expected 'vpu'")
+
+
+def pairwise_distances(x: torch.Tensor, *, E: int, tau: int = 1,
+                       variant: str = "vpu",
+                       impl: str = "auto") -> torch.Tensor:
+    """(Lp, Lp) squared distances of one series' delay embedding
+    (fused, paper Alg. 1); not mean-centered."""
+    _no_variant(variant)
+    kernel = _kernel_path(x, impl)
+    _tel("pairwise_distances", kernel, E=E, tau=tau, L=int(x.shape[-1]))
+    if not kernel:
+        return _ref.pairwise_distances(x, E=E, tau=tau)
+    return pairwise_dist.pairwise_distances(x, E=E, tau=tau)
+
+
+def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
+                max_idx=None, impl: str = "auto"):
+    """k nearest per row → (Euclidean dists, int32 idx), ascending
+    (paper Alg. 2)."""
+    kernel = _kernel_path(D, impl)
+    _tel("topk_select", kernel, k=k, Lp=int(D.shape[-1]))
+    if not kernel:
+        return _ref.topk_select(D, k=k, exclude_self=exclude_self,
+                                max_idx=max_idx)
+    return topk.topk_select(D, k=k, exclude_self=exclude_self,
+                            max_idx=max_idx)
+
+
+def topk_select_sizes(D: torch.Tensor, *, k: int, max_idxs,
+                      exclude_self: bool = True, impl: str = "auto"):
+    """k nearest per row under every ascending prefix cap in one pass →
+    (S, Lp, k) each; dist = inf / idx = ``ref.PAD_IDX`` where a cap leaves
+    fewer than k candidates. The CCM convergence-sweep primitive."""
+    kernel = _kernel_path(D, impl)
+    _tel("topk_select_sizes", kernel, k=k, sizes=len(max_idxs),
+         Lp=int(D.shape[-1]))
+    if not kernel:
+        return _ref.topk_select_sizes(D, k=k, max_idxs=max_idxs,
+                                      exclude_self=exclude_self)
+    return topk.topk_select_sizes(D, k=k, max_idxs=max_idxs,
+                                  exclude_self=exclude_self)
+
+
+def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
+            exclude_self: bool = True, max_idx=None, impl: str = "auto",
+            variant: str = "vpu", fused: bool = False):
+    """All-kNN over one library series (paper §3.3): pairwise distances
+    then top-k → (dists (Lp, k), idx (Lp, k)); k defaults to E + 1."""
+    if fused:
+        raise NotImplementedError(
+            "fused=True (the single-kernel pairwise + top-k) is not ported "
+            "yet: ROADMAP queue 2, item 9")
+    _no_variant(variant)
+    k = E + 1 if k is None else int(k)
+    _tel("all_knn", _kernel_path(x, impl), E=E, k=k, L=int(x.shape[-1]))
+    D = pairwise_distances(x, E=E, tau=tau, impl=impl)
+    return topk_select(D, k=k, exclude_self=exclude_self, max_idx=max_idx,
+                       impl=impl)
+
+
+def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+           offset: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Batched simplex lookup → (N, rows) predictions (paper Alg. 3)."""
+    kernel = _kernel_path(Y, impl)
+    _tel("lookup", kernel, N=int(Y.shape[0]))
+    if not kernel:
+        return _ref.lookup(Y, idx, w, offset=offset)
+    return _lookup_k.lookup(Y, idx, w, offset=offset)
 
 
 def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
@@ -99,8 +178,8 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
             return _ref.lookup_rho(Y, idx, w, offset=offset)
         return _ref.lookup_rho_batch(Y, idx, w, offset=offset)
     if idx.ndim == 2:
-        return lookup.lookup_rho(Y, idx[None], w[None], offset=offset)[0]
-    return lookup.lookup_rho(Y, idx, w, offset=offset)
+        return _lookup_k.lookup_rho(Y, idx[None], w[None], offset=offset)[0]
+    return _lookup_k.lookup_rho(Y, idx, w, offset=offset)
 
 
 def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
@@ -110,4 +189,4 @@ def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
     _tel("lookup_rho", kernel, N=int(X.shape[0]))
     if not kernel:
         return _ref.lookup_rho_own(X, idx, w, offset=offset)
-    return lookup.lookup_rho(X, idx, w, offset=offset, own=True)
+    return _lookup_k.lookup_rho(X, idx, w, offset=offset, own=True)

@@ -95,15 +95,17 @@ def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
            offset: int = 0) -> torch.Tensor:
     """Batched simplex lookup, paper Algorithm 3 → (N, rows).
 
-    Yhat[n, j] = sum_k w[j, k] * Y[n, idx[j, k] + offset]. Indices are
-    clamped into [0, L-1]: invalid slots carry idx = -1 with weight 0
-    (``edm.plan._derive_idx``), so clamping leaves finite results as they
-    are while ``torch`` indexing would raise on them.
+    Yhat[n, j] = sum_k w[j, k] * Y[n, idx[j, k] + offset], the k products
+    summed left to right (``sum_last``), so the CUDA kernel can repeat the
+    order bit for bit. Indices are clamped into [0, L-1]: invalid slots
+    carry idx = -1 with weight 0 (``edm.plan._derive_idx``), so clamping
+    leaves finite results as they are while ``torch`` indexing would raise
+    on them.
     """
     L = Y.shape[-1]
     cols = torch.clamp(idx.long() + offset, 0, L - 1)
     g = Y[:, cols]  # (N, rows, k)
-    return (g * w.to(Y.dtype)).sum(-1)
+    return sum_last(g * w.to(Y.dtype))
 
 
 def pearson_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -143,6 +145,107 @@ def lookup_rho_own(X, idx, w, *, offset: int = 0) -> torch.Tensor:
     return torch.stack([lookup_rho(X[b:b + 1], idx[b], w[b],
                                    offset=offset)[0]
                         for b in range(idx.shape[0])])
+
+
+# --------------------------------------------------------------------------
+# Per-series pipeline: distance matrix, top-k, multi-cap top-k (the
+# simplex oracle and the CCM convergence engine).
+# --------------------------------------------------------------------------
+
+
+def delay_embed(x: torch.Tensor, E: int, tau: int) -> torch.Tensor:
+    """Materialized time-delay embedding, shape (..., Lp, E)."""
+    Lp = num_embedded(x.shape[-1], E, tau)
+    return torch.stack([x[..., k * tau:k * tau + Lp] for k in range(E)],
+                       dim=-1)
+
+
+def pairwise_distances(x: torch.Tensor, *, E: int, tau: int) -> torch.Tensor:
+    """(Lp, Lp) squared distances of the delay embedding of one series.
+
+    The strict chain from ``acc = 0``: ``acc + fl((x[i+kτ] − x[j+kτ])²)``
+    for k = 0..E-1 in order. The series is not mean-centered (the TPU
+    kernel's wrapper centers it; the reference ``ref`` does not).
+    """
+    x = x.float()
+    Lp = num_embedded(x.shape[-1], E, tau)
+    acc = torch.zeros((Lp, Lp), dtype=torch.float32, device=x.device)
+    for k in range(E):
+        xk = x[k * tau:k * tau + Lp]
+        acc = acc + strict_sq(xk[:, None] - xk[None, :])
+    return acc
+
+
+def _sorted_roots(sv: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances of selected squared ones: sqrt(max(v, 0))."""
+    return sqrt_rn(torch.clamp(sv, min=0.0))
+
+
+def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
+                max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest per row of a square squared-distance matrix → (Lp, k).
+
+    Returns ascending Euclidean distances and int32 column indices.
+    Self (``exclude_self``) and columns past ``max_idx`` (inclusive cap)
+    enter as +inf with their real index, so a row with fewer than k valid
+    candidates fills in with +inf in ascending column order, as
+    ``lax.top_k`` fills it in the reference.
+    """
+    Lp = D.shape[0]
+    if k > Lp:
+        raise ValueError(f"k={k} exceeds the {Lp} candidates per row")
+    dev = D.device
+    mask = torch.zeros((Lp, Lp), dtype=torch.bool, device=dev)
+    if exclude_self:
+        mask |= torch.eye(Lp, dtype=torch.bool, device=dev)
+    if max_idx is not None:
+        mask |= torch.arange(Lp, device=dev)[None, :] > int(max_idx)
+    sv, si = torch.sort(torch.where(mask, _INF, D.float()), dim=-1,
+                        stable=True)
+    return _sorted_roots(sv[:, :k]), si[:, :k].to(torch.int32)
+
+
+def check_sizes_caps(max_idxs) -> tuple[int, ...]:
+    """Validate a multi-cap tuple (non-empty, >= 0, ascending) → ints."""
+    caps = tuple(int(m) for m in max_idxs)
+    if not caps:
+        raise ValueError("max_idxs must not be empty")
+    if any(m < 0 for m in caps):
+        raise ValueError(f"max_idxs must be >= 0, got {caps}")
+    if any(b < a for a, b in zip(caps, caps[1:])):
+        raise ValueError(f"max_idxs must be ascending, got {caps}")
+    return caps
+
+
+def topk_select_sizes(D: torch.Tensor, *, k: int, max_idxs,
+                      exclude_self: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest per row under every prefix cap → (S, Lp, k) each.
+
+    Level s is the (value, index) k-best over columns [0, max_idxs[s]]
+    (self excluded): the same valid slots as ``topk_select(D, k=k,
+    max_idx=max_idxs[s])``. A slot is valid iff its distance is finite;
+    the others are dist = inf / idx = ``PAD_IDX``.
+    """
+    Lp = D.shape[0]
+    caps = check_sizes_caps(max_idxs)
+    dev = D.device
+    rows = torch.arange(Lp, device=dev)[:, None]
+    outs_d, outs_i = [], []
+    for m in caps:
+        hi = min(m + 1, Lp)
+        vals = D[:, :hi].float()
+        if exclude_self:
+            vals = torch.where(torch.arange(hi, device=dev)[None, :] == rows,
+                               _INF, vals)
+        sv, si = torch.sort(vals, dim=-1, stable=True)
+        pad = max(0, k - hi)
+        sv = torch.nn.functional.pad(sv[:, :k], (0, pad), value=_INF)
+        si = torch.nn.functional.pad(si[:, :k], (0, pad), value=PAD_IDX)
+        ok = torch.isfinite(sv)
+        outs_d.append(torch.where(ok, _sorted_roots(sv), _INF))
+        outs_i.append(torch.where(ok, si.to(torch.int32), PAD_IDX))
+    return torch.stack(outs_d), torch.stack(outs_i)
 
 
 # --------------------------------------------------------------------------

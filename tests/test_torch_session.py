@@ -145,8 +145,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_unported_methods_raise_naming_roadmap():
     sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
-    calls = [lambda: sess.smap(), lambda: sess.ccm(0, 1, lib_sizes=(50,)),
-             lambda: sess.surrogate_test(0, 1), lambda: sess.append(None),
+    calls = [lambda: sess.smap(), lambda: sess.append(None),
              lambda: sess.xmap(run_dir="unused"),
              lambda: EDMConfig(mesh=object())]
     for call in calls:
