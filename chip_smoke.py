@@ -33,7 +33,17 @@ phase passed; any failure exits nonzero. Phases:
    ``impl="ref"``: ρ and null ρ within ``RHO_ATOL``, p-values equal
    except where a null lies within ``P_MARGIN`` of the real ρ, E_opt
    equal. Each call of both paths also runs once under ``torch.profiler``
-   for its device busy time, idle share and per-kernel device times.
+   for its device busy time, idle share and per-kernel device times;
+6. S-Map path — on the main path's session (E_opt cached),
+   ``sess.smap()`` (the 8-θ sweep per series, grouped by E_opt),
+   ``sess.xmap(method="smap", theta=1.0)`` (per-target E) and
+   ``EDM(panel, E=3).xmap(method="smap")``; launches, peak memory,
+   medians of ``RUNS`` runs, device busy time and idle share per call;
+   the engine's solve timed against ``torch.cholesky_solve``; then the
+   same calls with ``impl="ref"``: ρ within ``smap_rho_tol(θ)``, and the
+   pair where they differ most against a float64 solve.
+   The ``smap_gram`` kernel is held against its plain version beside the
+   other kernels in phase 3, G and M within ``GRAM_RTOL`` of Σ|terms|.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -65,6 +75,44 @@ RHO_ATOL = 1e-5
 P_MARGIN = 2e-5
 # Published H100 SXM peaks: HBM bytes/s and float32 (non-tensor-core) FLOP/s.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+SMAP_THETA = 1.0      # the locality of xmap(method="smap") (EDMConfig.theta)
+# S-Map G and M: float32 sums of ~1600 products, in the kernel's order and
+# in cuBLAS's (TF32 off), each entry within GRAM_RTOL of Σ|terms|.
+GRAM_RTOL = 1e-5
+
+
+def smap_rho_tol(theta: float) -> float:
+    """S-Map ρ bound between the kernel's and the plain run. The two Gram
+    sums (each within GRAM_RTOL of Σ|terms|) go through a Cholesky solve of
+    AᵀWA, whose condition number is κ(√W·A)² and grows with θ; the worst of
+    154 × 154 cross-map ρ sits far in that error's tail. Measured: JAX
+    against the port's plain version on the CPU, 40 × 40 pairs at L = 1600
+    (tests/test_torch_smap.py), ≤ 3.4e-5 at θ = 1 and ≤ 1.3e-3 at θ = 8;
+    the kernel against the plain version on the H100, 154 × 154 pairs at
+    θ = 1, ≤ 1.3e-4."""
+    return 5e-4 if theta <= 4.0 else 5e-3
+
+
+def smap_rho64(np, lib, tgt, *, E, Tp, theta, ridge=1e-6):
+    """ρ of one S-Map cross-map (library ``lib``, target ``tgt``, τ = 1,
+    leave-one-out) with every sum and the solve in float64: the arbiter
+    between two float32 runs that differ."""
+    lib, tgt = np.asarray(lib, np.float64), np.asarray(tgt, np.float64)
+    Lp = lib.size - (E - 1)
+    rows, off = Lp - Tp, E - 1 + Tp
+    Z = np.stack([lib[k:k + Lp] for k in range(E)], axis=1)[:rows]
+    A = np.concatenate([np.ones((rows, 1)), Z], axis=1)
+    d = np.sqrt(((Z[:, None, :] - Z[None, :, :]) ** 2).sum(-1))
+    dbar = d.mean(axis=1, keepdims=True)
+    W = np.exp(-theta * d / np.where(dbar > 1e-30, dbar, 1.0))
+    np.fill_diagonal(W, 0.0)
+    y = tgt[off:off + rows]
+    G = np.einsum("ji,ip,iq->jpq", W, A, A)
+    m = np.einsum("ji,i,ip->jp", W, y, A)
+    lam = ridge * np.trace(G, axis1=1, axis2=2) / (E + 1) + 1e-20
+    b = np.linalg.solve(G + lam[:, None, None] * np.eye(E + 1), m[..., None])
+    pred = (A * b[..., 0]).sum(1)
+    return float(np.corrcoef(pred, y)[0, 1])
 
 
 def fail(msg: str) -> None:
@@ -337,6 +385,125 @@ def check_slice_kernels(torch, X, pairwise_dist, topk, lookup, ref,
     return rows_out
 
 
+def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
+    """``smap_gram`` against its plain version: small edge shapes, then the
+    path's two shapes — one series at T = 8, N = 1 (the θ-sweep) and one
+    library against all 154 targets at T = 1 (the S-Map xmap). Returns the
+    kernel's row (at the xmap shape) and the sweep shape's timings."""
+
+    def held(kw, x, Y, what):
+        G, M = smap_gram.smap_gram(x, Y, **kw)
+        Gp, Mp = smap_gram.plain(x, Y, **kw)
+        Ga, Ma = ref.smap_gram_abs(x, Y, **kw)
+        worst = 0.0
+        for got, want, scale in ((G, Gp, Ga), (M, Mp, Ma)):
+            if got.shape != want.shape:
+                fail(f"smap_gram {what}: shape {tuple(got.shape)}, plain "
+                     f"{tuple(want.shape)}")
+            err = (got - want).abs()
+            if not bool((err <= GRAM_RTOL * scale).all()):
+                fail(f"smap_gram differs from its plain version beyond "
+                     f"{GRAM_RTOL}·Σ|terms| at {what}")
+            pos = scale > 0
+            worst = max(worst, float((err[pos] / scale[pos]).max()))
+        return worst, G, M
+
+    # Small shapes: every E/τ/Tp/leave-one-out/N combination asked for,
+    # rows (203 − (E−1)τ − Tp) never a multiple of the 64-row tile, a
+    # constant series (d̄ = 0) and E + 1 = 21.
+    xs, Ys = X[5, :203].contiguous(), X[6:9, :203].contiguous()
+    small = (0.0, 0.5, 2.0, 8.0)
+    worst = 0.0
+    for E in (1, 2, 5):
+        for tau in (1, 2):
+            for Tp in (0, 1, 3):
+                for excl in (True, False):
+                    for N in (1, 3):
+                        kw = dict(E=E, tau=tau, Tp=Tp, thetas=small,
+                                  exclude_self=excl)
+                        worst = max(worst, held(kw, xs, Ys[:N],
+                                                f"small {kw}, N={N}")[0])
+    const = torch.full_like(xs, 0.7)
+    for excl in (True, False):
+        kw = dict(E=2, tau=1, Tp=1, thetas=small, exclude_self=excl)
+        worst = max(worst, held(kw, const, Ys, "a constant series")[0])
+    kw = dict(E=20, tau=1, Tp=1, thetas=small, exclude_self=True)
+    worst = max(worst, held(kw, X[7, :300].contiguous(),
+                            X[8:10, :300].contiguous(), "E=20")[0])
+
+    def shape_timing(x, Y, kw):
+        err, G, M = held(kw, x, Y, f"the path shape {kw}, N={Y.shape[0]}")
+        rows, T, E1 = G.shape[0], G.shape[1], G.shape[2]
+        C = E1 * E1 + Y.shape[0] * E1
+        kfn = lambda: smap_gram.smap_gram(x, Y, **kw)  # noqa: E731
+        pfn = lambda: smap_gram.plain(x, Y, **kw)  # noqa: E731
+        # The library yardstick: the two torch.matmul of each θ, W @ (A⊗A)
+        # and W @ (y⊗A), on a materialized W (not part of the timing).
+        _, AA, yA = ref._smap_operands(x, Y, E=kw["E"], tau=kw["tau"],
+                                       Tp=kw["Tp"])
+        ratio = ref.smap_ratio(x, E=kw["E"], tau=kw["tau"], rows=rows)
+        eye = torch.eye(rows, dtype=torch.bool, device=x.device)
+        Ws = [torch.exp(-t * ratio).masked_fill(eye, 0.0)
+              for t in kw["thetas"]]
+        lfn = lambda: [(W @ AA, W @ yA) for W in Ws]  # noqa: E731
+        return dict(
+            max_rel_err=err, ms=time_ms(torch, kfn, 20),
+            device_ms=device_ms(torch, kfn, 10),
+            plain_ms=time_ms(torch, pfn, 3), library_ms=time_ms(torch, lfn, 20),
+            bound=bound_ms(4 * (x.numel() + Y.numel() + G.numel()
+                                + M.numel()), 2.0 * rows * rows * T * C),
+            shape={"rows": rows, "T": T, "E": E1 - 1, "N": Y.shape[0]})
+
+    x = X[0]
+    sweep = shape_timing(x, x[None], dict(E=E_FIXED, tau=1, Tp=1,
+                                          thetas=theta_grid,
+                                          exclude_self=True))
+    lib = shape_timing(x, X, dict(E=E_FIXED, tau=1, Tp=0,
+                                  thetas=(SMAP_THETA,), exclude_self=True))
+    row = kernel_row("smap_gram", "src/repro_torch/kernels/csrc/smap_gram.cu",
+                     "src/repro/kernels/smap_gram.py:49",
+                     max(worst, sweep["max_rel_err"], lib["max_rel_err"]),
+                     lib["ms"], lib["plain_ms"], lib["bound"],
+                     lib["library_ms"], lib["device_ms"])
+    return row, {"small_shapes_max_rel_err": worst, "sweep_shape": sweep,
+                 "xmap_library_shape": lib}
+
+
+def solve_yardstick(torch, X, smap_gram, groups, theta_grid):
+    """The S-Map engine's solve (``cholesky_ex``, then two triangular
+    solves) against ``cholesky_ex`` + ``torch.cholesky_solve`` on the same
+    Gram matrices, at the path's two largest batched shapes: the fixed-E
+    xmap (154 libraries × 1598 rows × 154 targets, E = 3) and the
+    θ-sweep of the largest E-group (T = 8, each series its own target)."""
+    from repro_torch.core.smap_engine import _ridge_solve
+
+    def alt(G, M):
+        E1 = G.shape[-1]
+        lam = 1e-6 * (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / E1) \
+            + 1e-20
+        c, _ = torch.linalg.cholesky_ex(
+            G + lam[..., None, None] * torch.eye(E1, device=G.device))
+        return torch.cholesky_solve(M.transpose(-1, -2), c)
+
+    E_big = max(groups, key=lambda e: len(groups[e]))
+    Xg = X[torch.as_tensor(groups[E_big], device=X.device)]
+    shapes = {"xmap_fixed_E": smap_gram.smap_gram(
+                  X, X, E=E_FIXED, tau=1, Tp=0, thetas=(SMAP_THETA,)),
+              f"sweep_E{E_big}": smap_gram.smap_gram(
+                  Xg, Xg[:, None, :], E=E_big, tau=1, Tp=1,
+                  thetas=theta_grid)}
+    out = {}
+    for name, (G, M) in shapes.items():
+        diff = float((_ridge_solve(G, M, 1e-6) - alt(G, M)).abs().max())
+        out[name] = {"systems": G[..., 0, 0].numel(), "rhs": M.shape[-2],
+                     "engine_ms": time_ms(torch, lambda: _ridge_solve(
+                         G, M, 1e-6), 5),
+                     "cholesky_solve_ms": time_ms(torch, lambda: alt(G, M),
+                                                  2),
+                     "max_abs_diff": diff}
+    return out
+
+
 def run_links(sess, links):
     """The slice path's link calls on one session → per-link results."""
     out = []
@@ -361,8 +528,14 @@ def main() -> None:
     from repro_torch.core.ccm import normalize_lib_sizes
     from repro_torch.data.timeseries import forced_network_panel
     from repro_torch.edm import EDM
+    from repro_torch.core.smap_engine import (DEFAULT_THETAS,
+                                              _series_per_launch)
     from repro_torch.kernels import (_build, knn_batch, knn_multi_e, lookup,
-                                     pairwise_dist, ref, topk)
+                                     pairwise_dist, ref, smap_gram, topk)
+
+    # The plain versions' matrix products in full float32, as the kernels.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------- 1. header
     smi = subprocess.run(
@@ -391,8 +564,12 @@ def main() -> None:
                                        lookup, ref)
     rows_out += check_slice_kernels(torch, X, pairwise_dist, topk, lookup,
                                     ref, lib_caps)
+    smap_row, smap_shapes = check_smap_kernel(torch, X, smap_gram, ref,
+                                              DEFAULT_THETAS)
+    rows_out.append(smap_row)
     for r in rows_out:
         print(json.dumps({"kernel_check": r}))
+    print(json.dumps({"smap_gram_shapes": smap_shapes}))
 
     wrappers = {"knn_multi_e": knn_multi_e.all_knn_multi_e,
                 "knn_batch": knn_batch.all_knn_batch,
@@ -400,7 +577,8 @@ def main() -> None:
                 "pairwise_distances": pairwise_dist.pairwise_distances,
                 "topk_select": topk.topk_select,
                 "topk_select_sizes": topk.topk_select_sizes,
-                "lookup": lookup.lookup}
+                "lookup": lookup.lookup,
+                "smap_gram": smap_gram.smap_gram}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -632,9 +810,85 @@ def main() -> None:
     if not (E_unc == E_unc_r).all():
         fail("uncached optimal_E: E_opt differs from the plain run")
 
+    # ------------------------------------------------------ 6. S-Map path
+    groups = {int(e): np.nonzero(E_opt == e)[0] for e in np.unique(E_opt)}
+    smap_calls = {
+        "smap": sess.smap,
+        "xmap_smap": lambda: sess.xmap(method="smap", theta=SMAP_THETA),
+        "xmap_smap_fixed_E": lambda: EDM(panel, E=E_FIXED).xmap(
+            method="smap")}
+    reset_counts()
+    smap_out, smap_per_call, smap_peak = {}, {}, {}
+    for name, fn in smap_calls.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        smap_out[name] = fn()
+        torch.cuda.synchronize()
+        smap_per_call[name] = delta(before)
+        smap_peak[name] = torch.cuda.max_memory_allocated()
+    smap_launches = counts()
+    # One launch per chunk of an E-group's series (the sweep), one per
+    # E-group (the xmap: B = N libraries), one for the fixed-E xmap.
+    rows_smap = {e: LENGTH - (e - 1) - 1 for e in groups}
+    want = {"smap": sum(
+        -(-len(m) // _series_per_launch(len(m), rows_smap[e],
+                                        len(DEFAULT_THETAS), e, dev))
+        for e, m in groups.items()),
+        "xmap_smap": len(groups), "xmap_smap_fixed_E": 1}
+    for name, n in want.items():
+        if smap_per_call[name] != {"smap_gram": n}:
+            fail(f"{name} launched {smap_per_call[name]}, not {n} smap_gram")
+    sw, xs1, xs3 = (smap_out[n] for n in smap_calls)
+    if sw.shape != (N_SERIES, len(DEFAULT_THETAS)) or \
+            not np.isfinite(sw).all():
+        fail(f"smap(): shape {sw.shape} or non-finite values")
+    for name, m in (("xmap_smap", xs1), ("xmap_smap_fixed_E", xs3)):
+        if m.shape != (N_SERIES, N_SERIES) or not np.isfinite(m).all():
+            fail(f"{name}: shape {m.shape} or non-finite values")
+    t_smap = {name: [host_s(torch, fn)[1] for _ in range(RUNS)]
+              for name, fn in smap_calls.items()}
+    print(json.dumps({"smap_path": {
+        "E_groups": {e: len(m) for e, m in groups.items()},
+        "seconds_per_call": {n: spread(v) for n, v in t_smap.items()},
+        "pairs_per_s": {n: N_SERIES * N_SERIES / statistics.median(t_smap[n])
+                        for n in ("xmap_smap", "xmap_smap_fixed_E")},
+        "launches_per_call": smap_per_call, "peak_bytes": smap_peak,
+        "rho_theta_median": [float(v) for v in np.median(sw, axis=0)]}}))
+    print(json.dumps({"smap_device_profile": {
+        name: device_profile(torch, fn) for name, fn in smap_calls.items()}}))
+    print(json.dumps({"smap_solve": solve_yardstick(
+        torch, X, smap_gram, groups, DEFAULT_THETAS)}))
+
+    sw_r = sess_r.smap()
+    xs1_r = sess_r.xmap(method="smap", theta=SMAP_THETA)
+    xs3_r = EDM(panel, E=E_FIXED, impl="ref").xmap(method="smap")
+    errs = {f"smap_rho_theta_{t}": float(np.abs(sw[:, i] - sw_r[:, i]).max())
+            for i, t in enumerate(DEFAULT_THETAS)}
+    errs["xmap_smap"] = float(np.abs(xs1 - xs1_r).max())
+    errs["xmap_smap_fixed_E"] = float(np.abs(xs3 - xs3_r).max())
+    # The pair where the two runs differ most, against a float64 solve.
+    worst = {}
+    for name, k, p, E_of in (("xmap_smap", xs1, xs1_r, lambda t: E_opt[t]),
+                             ("xmap_smap_fixed_E", xs3, xs3_r,
+                              lambda t: E_FIXED)):
+        li, ti = np.unravel_index(np.argmax(np.abs(k - p)), k.shape)
+        r64 = smap_rho64(np, panel[li], panel[ti], E=int(E_of(ti)), Tp=0,
+                         theta=SMAP_THETA)
+        worst[name] = {"pair": [int(li), int(ti)], "kernel": float(k[li, ti]),
+                       "plain": float(p[li, ti]), "float64": r64}
+    print(json.dumps({"smap_path_vs_plain": dict(errs, worst_pair=worst)}))
+    for i, t in enumerate(DEFAULT_THETAS):
+        if not errs[f"smap_rho_theta_{t}"] <= smap_rho_tol(t):
+            fail(f"smap() at θ={t} differs from the plain run by "
+                 f"{errs[f'smap_rho_theta_{t}']}")
+    for name in ("xmap_smap", "xmap_smap_fixed_E"):
+        if not errs[name] <= smap_rho_tol(SMAP_THETA):
+            fail(f"{name} differs from the plain run by {errs[name]}")
+
     for r in rows_out:
         r["launches"] = (main_launches if r["name"] in
                          ("knn_multi_e", "knn_batch", "lookup_rho")
+                         else smap_launches if r["name"] == "smap_gram"
                          else slice_launches)[r["name"]]
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "device_ms"} for r in rows_out]}))

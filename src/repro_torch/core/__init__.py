@@ -1,7 +1,7 @@
 """repro_torch.core — the EDM compute primitives under the session facade:
 embedding conventions, all-kNN search, simplex projection and optimal-E
-search, and convergent cross mapping (the convergence engine and the
-library-batched all-pairs engine)."""
+search, convergent cross mapping (the convergence engine and the
+library-batched all-pairs engine), and S-Map (the batched Gram engine)."""
 
 from repro_torch.core.ccm import (auto_batch_libs, ccm_convergence,
                                   ccm_convergence_caps, ccm_group_batched,
@@ -13,11 +13,21 @@ from repro_torch.core.knn import KnnTable, all_knn
 from repro_torch.core.simplex import (optimal_E, optimal_E_batch,
                                       optimal_E_sweep_seed, rho_curve,
                                       simplex_predict, simplex_skill)
+from repro_torch.core.smap import (nonlinearity_test, smap_predict,
+                                   smap_predict_seed, smap_skill)
+from repro_torch.core.smap_engine import (DEFAULT_THETAS, smap_cross_map,
+                                          smap_fit, smap_group,
+                                          smap_jacobian, smap_matrix,
+                                          smap_predict_batch,
+                                          smap_theta_sweep)
 
-__all__ = ["KnnTable", "all_knn", "auto_batch_libs", "ccm_convergence",
-           "ccm_convergence_caps", "ccm_group_batched", "ccm_matrix",
-           "cross_map", "cross_map_sizes_seed", "delay_embed",
+__all__ = ["DEFAULT_THETAS", "KnnTable", "all_knn", "auto_batch_libs",
+           "ccm_convergence", "ccm_convergence_caps", "ccm_group_batched",
+           "ccm_matrix", "cross_map", "cross_map_sizes_seed", "delay_embed",
            "drive_batched", "embed_offset", "normalize_lib_sizes",
-           "num_embedded", "optimal_E", "optimal_E_batch",
-           "optimal_E_sweep_seed", "pred_rows", "rho_curve",
-           "simplex_predict", "simplex_skill"]
+           "nonlinearity_test", "num_embedded", "optimal_E",
+           "optimal_E_batch", "optimal_E_sweep_seed", "pred_rows",
+           "rho_curve", "simplex_predict", "simplex_skill",
+           "smap_cross_map", "smap_fit", "smap_group", "smap_jacobian",
+           "smap_matrix", "smap_predict", "smap_predict_batch",
+           "smap_predict_seed", "smap_skill", "smap_theta_sweep"]

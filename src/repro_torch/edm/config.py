@@ -11,10 +11,8 @@ import dataclasses
 from typing import Any
 
 from repro_torch.core.embedding import num_embedded, pred_rows
+from repro_torch.core.smap_engine import DEFAULT_THETAS
 from repro_torch.kernels import ops
-
-#: Default S-Map θ grid (the reference's ``core.smap_engine.DEFAULT_THETAS``).
-DEFAULT_THETAS = (0.0, 0.1, 0.3, 0.5, 1.0, 2.0, 4.0, 8.0)
 
 #: Accepted ``on_invalid`` panel policies (see ``edm.dataset``).
 INVALID_POLICIES = ("raise", "mask", "drop")
@@ -30,8 +28,8 @@ class EDMConfig:
     tau:      time-delay lag.
     Tp:       forecast horizon of simplex / optimal-E.
     Tp_cross: cross-map horizon of ccm / xmap (kEDM uses 0).
-    theta, thetas, ridge: S-Map locality, θ grid and ridge strength
-              (S-Map is not ported yet; kept so configs read alike).
+    theta, thetas, ridge: S-Map locality of ``xmap(method="smap")``, θ
+              grid of ``smap()``, and ridge strength.
     k:        neighbour count; ``None`` means the simplex default E + 1.
     extra_slack: kNN-master columns beyond the horizon minimum.
     batch_libs: library batch size B of the all-pairs engine; ``None``

@@ -8,6 +8,8 @@ Bind a panel and a config once::
     causal = sess.xmap()               # reuses the SAME kNN master tables
     curve = sess.ccm(0, 1, lib_sizes=(50, 200, 500))  # convergence sweep
     sig = sess.surrogate_test(0, 1)    # CCM significance vs a null ensemble
+    curves = sess.smap()               # S-Map ρ(θ) per series
+    smap_xm = sess.xmap(method="smap") # S-Map cross-map matrix
 
 Every method builds a ``Plan`` (``sess.plan(task)`` shows it), then runs
 it. The multi-E kNN master built by ``optimal_E`` is held in the session
@@ -17,7 +19,8 @@ session's first ``xmap`` takes the direct batched engine instead
 the master's slack cannot cover runs one pass of the convergence engine
 (``core.ccm.ccm_convergence_caps``). ``cache=False`` sessions hold no
 master: ``optimal_E`` and ``simplex`` run the per-series primitives of
-``core.simplex``.
+``core.simplex``. ``smap`` and ``xmap(method="smap")`` run the batched
+S-Map Gram engine (``core.smap_engine``) once per E-group.
 
 Methods of ``repro.edm.EDM`` that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -34,9 +37,10 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core.ccm import (auto_batch_libs, ccm_convergence_caps,
                                   drive_batched, make_group_launch,
-                                  normalize_lib_sizes)
+                                  normalize_lib_sizes, pad_batch)
 from repro_torch.core.embedding import num_embedded
 from repro_torch.core.simplex import optimal_E_batch, simplex_skill
+from repro_torch.core.smap_engine import smap_group, smap_theta_sweep
 from repro_torch.edm.config import EDMConfig
 from repro_torch.edm.dataset import Dataset
 from repro_torch.edm.plan import (
@@ -104,6 +108,7 @@ class PanelResult:
     E_opt: np.ndarray | None = None
     rho: np.ndarray | None = None          # (N, E_max) optimal-E curves
     xmap: np.ndarray | None = None         # (N, N) cross-map matrix
+    smap: np.ndarray | None = None         # (N, |thetas|) θ-sweep skill
 
 
 class EDM:
@@ -237,7 +242,11 @@ class EDM:
                         else "library-batched direct engine, ceil(N/B) "
                              "launches per E-group"))
         if task == "smap":
-            raise _not_ported("EDM.smap", "6 (S-Map)")
+            return Plan(
+                task=task, impl=impl, placement="local",
+                E=f"fixed:{E or c.E}" if (E or c.E) else "per-series",
+                Tp=c.Tp, reuse=() if (E or c.E) else ("rho",), builds=(),
+                detail="batched Gram engine per E-group")
         raise ValueError(f"unknown task {task!r}")
 
     # ------------------------------------------------------------ caches
@@ -335,10 +344,38 @@ class EDM:
                 self.data.panel, iM[:, E - 1], E=E, tau=c.tau, Tp=c.Tp,
                 k=c.k_for(E), impl=self._impl).cpu().numpy())
 
-    # --------------------------------------------------------------- ccm
+    # -------------------------------------------------------------- smap
 
-    def smap(self, *args, **kwargs):
-        raise _not_ported("EDM.smap", "6 (S-Map)")
+    def smap(self, E: int | None = None, thetas=None) -> np.ndarray:
+        """S-Map θ-sweep (nonlinearity test) per series → (N, |θ|) ρ.
+
+        Per-series E (the default) groups the series by their cached
+        optimal E; each group is one ``core.smap_theta_sweep`` call.
+        """
+        c = self.config
+        thetas = c.thetas if thetas is None else tuple(
+            float(t) for t in thetas)
+        E = E if E is not None else c.E
+        with telemetry.span("session.smap", N=self.data.N,
+                            E=E or "per-series", thetas=len(thetas)):
+            self._plan_event("smap")
+            if E is not None:
+                groups = {int(E): np.arange(self.data.N)}
+            else:
+                _, groups = _e_groups(self._rho()[0], self.data.N)
+            out = np.zeros((self.data.N, len(thetas)), np.float32)
+            for Eg, members in groups.items():
+                out[members] = self._smap_group_sweep(Eg, members, thetas)
+            return self._mask_rows(out)
+
+    def _smap_group_sweep(self, E, members, thetas) -> np.ndarray:
+        c = self.config
+        X = self.data.panel[torch.as_tensor(members, device=self.device)]
+        return smap_theta_sweep(X, E=E, tau=c.tau, Tp=c.Tp, thetas=thetas,
+                                ridge=c.ridge,
+                                impl=self._impl).cpu().numpy()
+
+    # --------------------------------------------------------------- ccm
 
     def _resolve_pair_E(self, target_index: int, E: int | None) -> int:
         """E for a pairwise call: arg > config > target's cached optimum."""
@@ -512,10 +549,11 @@ class EDM:
         runs as ceil(N/B) library-batched launches double-buffered against
         host assembly; a cached kNN master supplies the neighbour indices,
         otherwise the direct ``all_knn_batch`` engine runs.
+        ``method="smap"`` swaps both for the batched S-Map engine
+        (``core.smap_group``) at locality ``theta`` (default
+        ``config.theta``).
         """
-        if method == "smap":
-            raise _not_ported("xmap(method='smap')", "6 (S-Map)")
-        if method != "simplex":
+        if method not in ("simplex", "smap"):
             raise ValueError(f"unknown xmap method {method!r}")
         if run_dir is not None:
             raise _not_ported("xmap(run_dir=) journaled runs",
@@ -528,16 +566,25 @@ class EDM:
             if E_opt is None:
                 E_opt = np.full(N, c.E, np.int32) if c.E else self._rho()[0]
             _, groups = _e_groups(E_opt, N)
-            rho = self._xmap_local(groups)
+            rho = self._xmap_local(method, groups, theta)
         return self._mask_matrix(rho)
 
-    def _xmap_group_launch(self, E, members, iM):
+    def _xmap_group_launch(self, method, E, members, theta, iM):
         """One E-group's engine as a ``launch(a, b, B)`` closure + its B."""
         c = self.config
         X = self.data.panel
         N = self.data.N
         tgts = X[torch.as_tensor(members, device=self.device)]
         Lp = num_embedded(self.data.L, E, c.tau)
+        if method == "smap":
+            th = float(c.theta if theta is None else theta)
+
+            def launch(a, b, B):
+                return smap_group(pad_batch(X[a:b], B), tgts, E=E,
+                                  tau=c.tau, Tp=c.Tp_cross, theta=th,
+                                  ridge=c.ridge, impl=self._impl)
+
+            return launch, min(N, c.batch_libs) if c.batch_libs else N
         if iM is not None:
             launch = make_master_group_launch(
                 X, iM[:, E - 1], tgts, E=E, tau=c.tau, Tp=c.Tp_cross,
@@ -553,29 +600,34 @@ class EDM:
                                             device=self.device)
         return launch, max(1, min(int(B), N))
 
-    def _xmap_local(self, groups) -> np.ndarray:
+    def _xmap_local(self, method, groups, theta) -> np.ndarray:
         """Local all-pairs matrix: library-batched engine per E-group.
 
-        A cached master covering the needed levels supplies the indices;
-        otherwise the direct engine runs — a one-shot matrix does not pay
-        for a master it would use once, a repeated one (second direct run
-        on a caching session) builds it.
+        For simplex, a cached master covering the needed levels supplies
+        the indices; otherwise the direct engine runs — a one-shot matrix
+        does not pay for a master it would use once, a repeated one
+        (second direct run on a caching session) builds it. S-Map uses
+        no kNN state.
         """
         c = self.config
         N = self.data.N
+        simplex = method == "simplex"
         hit = self._cache.get("master")
-        use_master = c.cache and hit is not None and hit[3] >= max(groups)
-        if c.cache and not use_master and self.stats["xmap_direct_runs"] > 0:
+        use_master = (simplex and c.cache and hit is not None
+                      and hit[3] >= max(groups))
+        if (simplex and c.cache and not use_master
+                and self.stats["xmap_direct_runs"] > 0):
             use_master = True
         if use_master:
             iM = self._master(max(groups))[1]
         else:
             iM = None
-            if c.cache:
+            if simplex and c.cache:
                 self._bump("xmap_direct_runs")
         rho = np.zeros((N, N), np.float32)
         for E, members in groups.items():
-            launch, B = self._xmap_group_launch(E, members, iM)
+            launch, B = self._xmap_group_launch(method, E, members, theta,
+                                                iM)
             rho[:, members] = drive_batched(N, B, launch)
         return rho
 
@@ -587,13 +639,11 @@ class EDM:
         Queued panels of the same length are concatenated and driven
         through one session per task at ``flush()``.
         """
+        allowed = ("optimal_E", "smap", "xmap")
         tasks = tuple(tasks)
         for t in tasks:
-            if t == "smap":
-                raise _not_ported("submit_panel task 'smap'", "6 (S-Map)")
-            if t not in ("optimal_E", "xmap"):
-                raise ValueError(
-                    f"unknown task {t!r}; expected ('optimal_E', 'xmap')")
+            if t not in allowed:
+                raise ValueError(f"unknown task {t!r}; expected {allowed}")
         panel = np.asarray(panel, np.float32)
         if panel.ndim == 1:
             panel = panel[None, :]
@@ -622,6 +672,10 @@ class EDM:
                 for (ticket, _), a, b in zip(items, offs, offs[1:]):
                     results[ticket].E_opt = E_opt[a:b]
                     results[ticket].rho = rho[a:b]
+            if "smap" in tasks:
+                sweep = sess.smap()
+                for (ticket, _), a, b in zip(items, offs, offs[1:]):
+                    results[ticket].smap = sweep[a:b]
             if "xmap" in tasks:
                 # Cross terms force per-panel matrices, but the batch
                 # session's per-series state slices cleanly: each panel

@@ -25,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: One shared library per ``csrc/<name>.cu``.
 KERNELS = ("knn_multi_e", "knn_batch", "lookup_rho", "lookup",
-           "pairwise_dist", "topk")
+           "pairwise_dist", "topk", "smap_gram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -113,6 +113,9 @@ _SIGNATURES = {
     "topk_select_launch": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P]),
     "topk_sizes_launch": ("topk",
                           [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "smap_gram_launch": ("smap_gram",
+                         [_P, _I, _I, _P, _LL, _I, _P, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P]),
 }
 
 

@@ -20,6 +20,7 @@ from repro_torch import telemetry
 from repro_torch.kernels import knn_batch, knn_multi_e, pairwise_dist, topk
 from repro_torch.kernels import lookup as _lookup_k
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import smap_gram as _smap_gram_k
 
 make_weights = _ref.make_weights
 pearson_rows = _ref.pearson_rows
@@ -190,3 +191,23 @@ def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
     if not kernel:
         return _ref.lookup_rho_own(X, idx, w, offset=offset)
     return _lookup_k.lookup_rho(X, idx, w, offset=offset, own=True)
+
+
+def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
+              Tp: int = 1, thetas, exclude_self: bool = True,
+              impl: str = "auto"):
+    """S-Map weighted normal-equations accumulation for every (row, θ,
+    target) → (G (rows, T, E+1, E+1), M (rows, T, N, E+1)).
+
+    The AᵀWA Gram matrices and AᵀWy moments the batched S-Map engine
+    solves (core/smap_engine.py). ``x`` may carry a leading library axis
+    (B, L), with ``Y`` (N, L) shared or (B, N, L) per library; G and M
+    then gain a leading B. The kernel forms W tile by tile in shared
+    memory; the plain version holds one (rows, rows) W at a time.
+    """
+    thetas = tuple(float(t) for t in thetas)
+    kernel = _kernel_path(x, impl)
+    _tel("smap_gram", kernel, E=E, thetas=len(thetas), L=int(x.shape[-1]))
+    fn = _smap_gram_k.smap_gram if kernel else _smap_gram_k.plain
+    return fn(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,
+              exclude_self=exclude_self)

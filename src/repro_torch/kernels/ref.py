@@ -76,6 +76,22 @@ def sum_last(w: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def sum_tree(w: torch.Tensor) -> torch.Tensor:
+    """Pairwise-tree sum over the last axis, one elementwise add per level.
+
+    The axis is zero-padded to a power of two and halved until one slot
+    is left; the order of every sum is fixed by the code, so a row's sum
+    is the same bits at any batch size and on any device (a reduction
+    kernel's split of a long axis depends on how many rows it reduces).
+    """
+    n = w.shape[-1]
+    s = torch.nn.functional.pad(w, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s[..., 0]
+
+
 def make_weights(dists: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Simplex weights from sorted neighbor distances, paper step (3).
 
@@ -117,6 +133,22 @@ def pearson_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cov = (am * bm).sum(-1)
     va = (am * am).sum(-1)
     vb = (bm * bm).sum(-1)
+    denom = torch.sqrt(va * vb)
+    return torch.where(denom > 0, cov / torch.clamp(denom, min=1e-30),
+                       torch.zeros_like(cov))
+
+
+def pearson_rows_tree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``pearson_rows`` with every sum a ``sum_tree``: each row's ρ is the
+    same bits whatever the other rows of the call (the batch invariance
+    of the S-Map engines)."""
+    a = a.float()
+    b = b.float()
+    am = a - (sum_tree(a) / a.shape[-1])[..., None]
+    bm = b - (sum_tree(b) / b.shape[-1])[..., None]
+    cov = sum_tree(am * bm)
+    va = sum_tree(am * am)
+    vb = sum_tree(bm * bm)
     denom = torch.sqrt(va * vb)
     return torch.where(denom > 0, cov / torch.clamp(denom, min=1e-30),
                        torch.zeros_like(cov))
@@ -368,3 +400,105 @@ def all_knn_multi_e(x: torch.Tensor, *, E_max: int, tau: int = 1,
         outs_i.append(torch.nn.functional.pad(i, (0, pad), value=PAD_IDX))
     return pad_multi_e_tables(torch.stack(outs_d), torch.stack(outs_i),
                               E_max=E_max, tau=tau, ks=ks)
+
+
+# --------------------------------------------------------------------------
+# S-Map weighted normal equations (the batched S-Map engine substrate).
+#
+# For query row j and locality θ, S-Map fits ŷ = [1, z_j]·b with
+# b = argmin Σ_i w_i (y_i − [1, z_i]·b)²,  w_i = exp(−θ d_ij / d̄_j).
+# The engine accumulates the (E+1, E+1) weighted Gram matrix G = AᵀWA and
+# the moments M = AᵀWy for every (j, θ, target) and batch-solves the ridge
+# normal equations downstream (core/smap_engine.py).
+# --------------------------------------------------------------------------
+
+_DBAR_TINY = 1e-30  # d̄ below this ⇒ degenerate (constant) row: ratio d/1
+
+
+def smap_ratio(x: torch.Tensor, *, E: int, tau: int,
+               rows: int) -> torch.Tensor:
+    """(rows, rows) S-Map distance ratios d_ij / d̄_j over the library.
+
+    d_ij = sqrt_rn(max(D_ij, 0)) of the strict-chain squared distances
+    (bit-equal to the reference's); d̄_j is their mean over the ``rows``
+    library columns, self's zero included (cppEDM). A row with d̄ ≤ 1e-30
+    (a constant series, where every d_ij is 0) divides by 1, so its
+    weights are exp(0) = 1.
+    """
+    d = _sorted_roots(pairwise_distances(x, E=E, tau=tau)[:rows, :rows])
+    dbar = d.mean(dim=1, keepdim=True)
+    return d / torch.where(dbar > _DBAR_TINY, dbar, torch.ones_like(dbar))
+
+
+def _smap_operands(x, Y, *, E, tau, Tp):
+    """(rows, A·A (rows, (E+1)²), y·A (rows, N·(E+1))) of one library."""
+    if Tp < 0:
+        raise ValueError(f"smap_gram needs Tp >= 0, got {Tp}")
+    x = x.float()
+    Y = Y.float()
+    Lp = num_embedded(x.shape[-1], E, tau)
+    rows = Lp - Tp
+    if rows <= 0:
+        raise ValueError(f"no library rows: L={x.shape[-1]}, E={E}, "
+                         f"tau={tau}, Tp={Tp}")
+    off = (E - 1) * tau + Tp
+    E1 = E + 1
+    A = torch.cat([torch.ones((rows, 1), dtype=torch.float32,
+                              device=x.device),
+                   delay_embed(x, E, tau)[:rows]], dim=1)
+    yv = Y[:, off:off + rows]  # (N, rows)
+    AA = (A[:, :, None] * A[:, None, :]).reshape(rows, E1 * E1)
+    yA = (yv.T[:, :, None] * A[:, None, :]).reshape(rows, -1)
+    return rows, AA, yA
+
+
+def _smap_products(x, Y, *, E, tau, Tp, thetas, exclude_self, absolute):
+    rows, AA, yA = _smap_operands(x, Y, E=E, tau=tau, Tp=Tp)
+    if absolute:
+        AA, yA = AA.abs(), yA.abs()
+    E1 = E + 1
+    ratio = smap_ratio(x.float(), E=E, tau=tau, rows=rows)
+    self_mask = torch.eye(rows, dtype=torch.bool, device=x.device)
+    Gs, Ms = [], []
+    for t in thetas:  # two products per θ; one (rows, rows) W at a time
+        W = torch.exp(-float(t) * ratio)
+        if exclude_self:
+            W = W.masked_fill(self_mask, 0.0)
+        Gs.append((W @ AA).reshape(rows, E1, E1))
+        Ms.append((W @ yA).reshape(rows, -1, E1))
+    return torch.stack(Gs, dim=1), torch.stack(Ms, dim=1)
+
+
+def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
+              Tp: int = 1, thetas: tuple[float, ...],
+              exclude_self: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Gram/moment accumulation for every (query row, θ, target).
+
+    x: (L,) library series; Y: (N, L) target panel (self-prediction is
+    Y = x[None]). With rows = Lp − Tp library points (those whose Tp-ahead
+    truth exists) and A = [1 | delay_embed(x)[:rows]] of shape (rows, E+1):
+
+      G[j, t]    = Aᵀ W_{j,θ_t} A            (rows, T, E+1, E+1)
+      M[j, t, n] = Aᵀ W_{j,θ_t} y_n          (rows, T, N,   E+1)
+
+    where W_{j,θ} = diag(exp(−θ d_ij / d̄_j)) with the self weight zeroed
+    when ``exclude_self`` (leave-one-out) and y_n[i] = Y[n, i + off],
+    off = (E−1)τ + Tp. Each θ is two products, W @ (A⊗A) and W @ (y⊗A).
+    Tp ≥ 0.
+    """
+    return _smap_products(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,
+                          exclude_self=exclude_self, absolute=False)
+
+
+def smap_gram_abs(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
+                  Tp: int = 1, thetas: tuple[float, ...],
+                  exclude_self: bool = True
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Σ_i w_ij·|term_i| for every entry of ``smap_gram``'s (G, M).
+
+    The scale against which two float32 accumulations of G and M in
+    different orders are compared: each rounding error of a sum is
+    bounded by a multiple of it, whatever the terms' signs.
+    """
+    return _smap_products(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,
+                          exclude_self=exclude_self, absolute=True)

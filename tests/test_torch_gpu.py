@@ -141,3 +141,108 @@ def test_session_ccm_and_surrogates_on_gpu_match_plain_session():
                      EDM(panel, E=3, cache=False, impl=impl).simplex()))
     for got, want in zip(*runs):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------------ S-Map
+# G and M sum ~rows float32 products in the kernel's order and in cuBLAS's:
+# held within GRAM_RTOL of Σ|terms| (``ref.smap_gram_abs``). ρ goes
+# through an ill-conditioned solve at large θ (tests/test_torch_smap.py).
+GRAM_RTOL = 1e-5
+
+
+def _smap_rho_tol(theta: float) -> float:
+    return 1e-4 if theta <= 4.0 else 3e-3
+
+
+def _gram_close(got, want, scale):
+    err = (got - want).abs()
+    assert bool((err <= GRAM_RTOL * scale).all()), float(err.max())
+
+
+@pytest.mark.parametrize("E,tau,Tp,excl,N,L", [
+    (1, 1, 0, False, 1, 300),    # E = 1, Tp = 0, self included
+    (2, 2, 1, True, 3, 257),     # tau 2, rows not a multiple of 64
+    (5, 1, 3, True, 3, 300),
+    (3, 1, 1, True, 1, 132),     # rows = 128: tiles end on the last row
+    (3, 1, 0, True, 1, 133),     # rows = 131: a tile straddles rows
+    (20, 1, 1, True, 2, 300),    # E + 1 = 21: 441 + 42 columns
+])
+def test_smap_gram_kernel_matches_plain(E, tau, Tp, excl, N, L):
+    from repro_torch.kernels import ref, smap_gram
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = _cuda_panel(N=N + 1, L=L, seed=E)
+    x, Y = X[0], X[1:]
+    kw = dict(E=E, tau=tau, Tp=Tp, thetas=(0.0, 0.5, 2.0, 8.0),
+              exclude_self=excl)
+    G, M = smap_gram.smap_gram(x, Y, **kw)
+    Gp, Mp = smap_gram.plain(x, Y, **kw)
+    Ga, Ma = ref.smap_gram_abs(x, Y, **kw)
+    assert G.shape == Gp.shape and M.shape == Mp.shape
+    _gram_close(G, Gp, Ga)
+    _gram_close(M, Mp, Ma)
+
+
+def test_smap_gram_kernel_constant_series_and_batch_axis():
+    from repro_torch.kernels import ref, smap_gram
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = _cuda_panel(N=4, L=300)
+    X[2] = 0.7  # a constant library: d̄ = 0, every weight 1
+    kw = dict(E=2, tau=1, Tp=1, thetas=(0.0, 4.0))
+    G, M = smap_gram.smap_gram(X, X[:3], **kw)          # shared targets
+    Go, Mo = smap_gram.smap_gram(X, X[:, None, :], **kw)  # own targets
+    for b in range(4):
+        g, m = smap_gram.smap_gram(X[b], X[:3], **kw)
+        assert torch.equal(G[b], g) and torch.equal(M[b], m)
+        g, m = smap_gram.smap_gram(X[b], X[b][None], **kw)
+        assert torch.equal(Go[b], g) and torch.equal(Mo[b], m)
+        gp, mp = smap_gram.plain(X[b], X[:3], **kw)
+        ga, ma = ref.smap_gram_abs(X[b], X[:3], **kw)
+        _gram_close(G[b], gp, ga)
+        _gram_close(M[b], mp, ma)
+    assert torch.isfinite(G[2]).all() and torch.isfinite(M[2]).all()
+
+
+def test_smap_launches_per_call_and_plain_agreement():
+    from repro_torch.core import smap_group, smap_theta_sweep
+    from repro_torch.kernels import smap_gram
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = _cuda_panel(N=6, L=400)
+    thetas = (0.0, 1.0, 8.0)
+    smap_gram.smap_gram.launches = 0
+    got = smap_theta_sweep(X, E=3, thetas=thetas)
+    assert smap_gram.smap_gram.launches == 1  # the panel in one launch
+    want = smap_theta_sweep(X, E=3, thetas=thetas, impl="ref")
+    for t, theta in enumerate(thetas):
+        assert float((got[:, t] - want[:, t]).abs().max()) <= \
+            _smap_rho_tol(theta)
+    smap_gram.smap_gram.launches = 0
+    g = smap_group(X, X[1:4], E=2, theta=1.5)
+    assert smap_gram.smap_gram.launches == 1  # every library in one launch
+    gp = smap_group(X, X[1:4], E=2, theta=1.5, impl="ref")
+    assert float((g - gp).abs().max()) <= _smap_rho_tol(1.5)
+
+
+def test_session_smap_on_gpu_matches_plain_session():
+    from repro_torch.edm import EDM
+    panel = _cuda_panel(N=6, L=500).cpu().numpy()
+    outs = []
+    for impl in ("auto", "ref"):
+        sess = EDM(panel, E_max=6, impl=impl)
+        outs.append((sess.smap(), sess.xmap(method="smap", theta=1.0),
+                     EDM(panel, E=3, impl=impl, batch_libs=4).xmap(
+                         method="smap")))
+    for t, theta in enumerate(EDM(panel, impl="ref").config.thetas):
+        np.testing.assert_allclose(outs[0][0][:, t], outs[1][0][:, t],
+                                   rtol=0, atol=_smap_rho_tol(theta))
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=_smap_rho_tol(1.0))
+
+
+@pytest.mark.parametrize("E", [None, 3], ids=["per-series", "fixed"])
+def test_xmap_smap_bit_invariant_in_batch_size_on_gpu(E):
+    from repro_torch.edm import EDM
+    panel = _cuda_panel(N=9, L=400).cpu().numpy()
+    outs = [EDM(panel, E=E, E_max=6, batch_libs=B).xmap(method="smap")
+            for B in (1, 4, panel.shape[0])]
+    for m in outs[1:]:
+        np.testing.assert_array_equal(m, outs[0])

@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.edm, repro_torch.kernels.ops, "
             "repro_torch.kernels.knn_multi_e, repro_torch.kernels.knn_batch, "
             "repro_torch.kernels.lookup, repro_torch.kernels.topk, "
-            "repro_torch.kernels.pairwise_dist, repro_torch.core, "
+            "repro_torch.kernels.pairwise_dist, "
+            "repro_torch.kernels.smap_gram, repro_torch.core, "
+            "repro_torch.core.smap, repro_torch.core.smap_engine, "
             "repro_torch.edm.surrogates, repro_torch.data, "
             "repro_torch.telemetry\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

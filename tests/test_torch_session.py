@@ -13,14 +13,30 @@ import pytest
 import torch
 
 from repro.core.ccm import ccm_group_batched as j_group_batched
+from repro.core.smap_engine import DEFAULT_THETAS
 from repro.data import timeseries as ts
 from repro.edm import EDM as JEDM
 from repro_torch import telemetry
+from repro_torch.core import smap_group, smap_theta_sweep
 from repro_torch.core.ccm import ccm_group_batched
 from repro_torch.edm import EDM, EDMConfig, carry_session_cache
 
 ATOL = 1e-5
 E_MAX = 6
+
+
+def smap_rho_tol(theta: float) -> float:
+    """S-Map ρ bound against JAX: two float32 Gram sums in different
+    orders go through an ill-conditioned solve at large θ (the measurement
+    is in tests/test_torch_smap.py)."""
+    return 1e-4 if theta <= 4.0 else 3e-3
+
+
+def _assert_smap_close(got, want, thetas):
+    assert got.shape == want.shape == (got.shape[0], len(thetas))
+    for t, theta in enumerate(thetas):
+        np.testing.assert_allclose(got[:, t], want[:, t], rtol=0,
+                                   atol=smap_rho_tol(theta))
 
 
 def _panel(seed: int) -> np.ndarray:
@@ -145,7 +161,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_unported_methods_raise_naming_roadmap():
     sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
-    calls = [lambda: sess.smap(), lambda: sess.append(None),
+    calls = [lambda: sess.append(None),
              lambda: sess.xmap(run_dir="unused"),
              lambda: EDMConfig(mesh=object())]
     for call in calls:
@@ -173,3 +189,99 @@ def test_ccm_group_batched_matches_reference():
                             torch.from_numpy(panel), E=2, batch_libs=3)
     assert got.shape == (4, panel.shape[0])
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------------ S-Map
+
+
+def test_smap_fixed_and_per_series_match_reference(pair):
+    _, js, ts_ = pair
+    _assert_smap_close(ts_.smap(E=2), js.smap(E=2), DEFAULT_THETAS)
+    np.testing.assert_array_equal(ts_.optimal_E()[0], js.optimal_E()[0])
+    _assert_smap_close(ts_.smap(), js.smap(), DEFAULT_THETAS)
+    thetas = (0.0, 2.0)
+    _assert_smap_close(ts_.smap(thetas=thetas), js.smap(thetas=thetas),
+                       thetas)
+
+
+def test_smap_bit_equal_to_core_theta_sweep():
+    panel = _panel(9)
+    thetas = (0.0, 0.5, 2.0)
+    sess = EDM(panel, E_max=E_MAX, thetas=thetas, device="cpu")
+    X = torch.from_numpy(panel)
+    np.testing.assert_array_equal(
+        sess.smap(E=2), smap_theta_sweep(X, E=2, thetas=thetas).numpy())
+    E_opt, _ = sess.optimal_E()
+    want = np.zeros((panel.shape[0], len(thetas)), np.float32)
+    for E in sorted(set(E_opt.tolist())):
+        m = np.nonzero(E_opt == E)[0]
+        want[m] = smap_theta_sweep(X[m], E=int(E), thetas=thetas).numpy()
+    np.testing.assert_array_equal(sess.smap(), want)
+
+
+def test_xmap_smap_matches_reference_with_masked_series():
+    panel = _panel(4)
+    panel[1, 5] = np.nan
+    got = EDM(panel, E_max=E_MAX, on_invalid="mask",
+              device="cpu").xmap(method="smap", theta=1.5)
+    want = JEDM(panel, impl="ref", E_max=E_MAX,
+                on_invalid="mask").xmap(method="smap", theta=1.5)
+    assert np.isnan(got[1]).all() and np.isnan(got[:, 1]).all()
+    assert np.isfinite(np.delete(np.delete(got, 1, 0), 1, 1)).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=smap_rho_tol(1.5))
+
+
+def test_xmap_smap_bit_equal_to_core_smap_group():
+    panel = _panel(9)
+    X = torch.from_numpy(panel)
+    sess = EDM(panel, E_max=E_MAX, device="cpu")
+    E_opt, _ = sess.optimal_E()
+    got = sess.xmap(method="smap", theta=1.5)
+    want = np.zeros((panel.shape[0],) * 2, np.float32)
+    for E in sorted(set(E_opt.tolist())):
+        m = np.nonzero(E_opt == E)[0]
+        want[:, m] = smap_group(X, X[m], E=int(E), theta=1.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    fixed = EDM(panel, E=2, theta=1.5, device="cpu").xmap(method="smap")
+    np.testing.assert_array_equal(fixed, smap_group(X, X, E=2,
+                                                    theta=1.5).numpy())
+
+
+@pytest.mark.parametrize("E", [None, 3], ids=["per-series", "fixed"])
+def test_xmap_smap_bit_invariant_in_batch_size(E):
+    panel = _panel(4)
+    outs = [EDM(panel, E=E, E_max=E_MAX, batch_libs=B,
+                device="cpu").xmap(method="smap")
+            for B in (1, 4, panel.shape[0])]
+    for m in outs[1:]:
+        np.testing.assert_array_equal(m, outs[0])
+
+
+def test_plan_smap_matches_reference():
+    panel = _panel(4)
+    for kw in ({}, {"E": 3}):
+        got = EDM(panel, E_max=E_MAX, device="cpu", **kw).plan("smap")
+        want = JEDM(panel, impl="ref", E_max=E_MAX, **kw).plan("smap")
+        for field in ("task", "placement", "E", "Tp", "reuse", "builds",
+                      "detail"):
+            assert getattr(got, field) == getattr(want, field), field
+    assert EDM(panel, device="cpu").plan("smap", E=2).E == "fixed:2"
+
+
+def test_submit_panel_smap_flush_matches_reference_and_sessions():
+    a, b = _panel(4), _panel(9)
+    thetas = (0.0, 1.0, 4.0)
+    sess = EDM(a, E_max=E_MAX, thetas=thetas, device="cpu")
+    jsess = JEDM(a, impl="ref", E_max=E_MAX, thetas=thetas)
+    tickets = [(sess.submit_panel(p, tasks=("optimal_E", "smap")),
+                jsess.submit_panel(p, tasks=("optimal_E", "smap")), p)
+               for p in (a, b)]
+    res, jres = sess.flush(), jsess.flush()
+    for t, jt, p in tickets:
+        direct = EDM(p, E_max=E_MAX, thetas=thetas, device="cpu")
+        np.testing.assert_array_equal(res[t].E_opt, direct.optimal_E()[0])
+        np.testing.assert_array_equal(res[t].smap, direct.smap())
+        np.testing.assert_array_equal(res[t].E_opt, jres[jt].E_opt)
+        _assert_smap_close(res[t].smap, jres[jt].smap, thetas)
+    with pytest.raises(ValueError, match="unknown task"):
+        sess.submit_panel(a, tasks=("nope",))
