@@ -43,7 +43,26 @@ phase passed; any failure exits nonzero. Phases:
    same calls with ``impl="ref"``: ρ within ``smap_rho_tol(θ)``, and the
    pair where they differ most against a float64 solve.
    The ``smap_gram`` kernel is held against its plain version beside the
-   other kernels in phase 3, G and M within ``GRAM_RTOL`` of Σ|terms|.
+   other kernels in phase 3, G and M within ``GRAM_RTOL`` of Σ|terms|;
+   so are ``knn_append`` (bit-equal to its plain version and to a cold
+   ``knn_multi_e`` build: edge shapes, an unordered master, the append
+   path's shapes), ``pairwise_distances_mxu`` (within
+   ``pairwise_dist.MXU_RTOL`` of ‖zᵢ‖² + ‖zⱼ‖²) and ``knn_fused``
+   (bit-equal to its plain version and to the pairwise + top-k kernels);
+7. append path — ``EDM(panel[:, :1536]).optimal_E()`` builds the master;
+   then, on a fresh session holding that master each time,
+   ``sess.append(next Δt columns)`` for Δt = 1, 16 and 64: the grown
+   master bit-equal to a cold session's on the grown panel, E_opt and ρ
+   of the following ``optimal_E()`` equal to the cold session's, one
+   ``xmap()``; medians of ``RUNS`` appends beside the cold master build,
+   launches, device busy time and idle share, the append's peak device
+   memory above what was held before it;
+8. kNN variants path — ``core.all_knn(x, E=E, variant="mxu")`` and
+   ``ops.all_knn(x, E=E, fused=True)`` over the 154 series for E = 3 and
+   20 and over one series at L = 10,000 (E = 20): fused bit-equal to the
+   two-kernel path, mxu's neighbour sets equal vpu's away from near-ties,
+   and at L = 10,000 the fused call's device memory holds no (Lp, Lp)
+   buffer (the two-kernel call's is shown beside it).
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -79,6 +98,10 @@ SMAP_THETA = 1.0      # the locality of xmap(method="smap") (EDMConfig.theta)
 # S-Map G and M: float32 sums of ~1600 products, in the kernel's order and
 # in cuBLAS's (TF32 off), each entry within GRAM_RTOL of Σ|terms|.
 GRAM_RTOL = 1e-5
+APPEND_L0 = 1536          # the append path binds this prefix of the panel
+APPEND_DTS = (1, 16, 64)  # then appends this many points, each from it
+VARIANT_ES = (3, 20)      # the kNN variants path: E (k = E + 1) ...
+LONG_L = 10_000           # ... and one series at kEDM's scale (E = 20)
 
 
 def smap_rho_tol(theta: float) -> float:
@@ -188,6 +211,16 @@ def device_profile(torch, fn) -> dict:
             "idle_share": (1.0 - busy_us * 1e-6 / wall) if spans else None,
             "kernels": {k: {"launches": n, "mean_us": us / n}
                         for k, (n, us) in top}}
+
+
+def peak_extra(torch, fn):
+    """(result, peak device bytes allocated above what was held before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -469,6 +502,159 @@ def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
                  "xmap_library_shape": lib}
 
 
+def append_ops(N, E_max, L_old, dt, k):
+    """Float operations of one panel append: the strict chains of the
+    stored candidates' recompute and of the (dt, L_new) slab per level."""
+    L_new = L_old + dt
+    return 3.0 * N * sum((e + 1) * ((L_old - e) * k + dt * L_new)
+                         for e in range(E_max))
+
+
+def check_append_kernel(torch, X, knn_multi_e, knn_append, ref):
+    """``knn_append`` against its plain version and the cold build, bit for
+    bit: small edge shapes (ties, garbage slots, Δt = 1 and Δt > k_m,
+    E = 1 and E = 20, a stored list out of order), then the append path's
+    shapes (the 154-series master at L = 1536, E_max = 20, k = 22, grown
+    by each Δt). Returns the kernel's row at Δt = 64 and per-Δt times."""
+
+    def held(Xg, d, i, tau, what, cold=True):
+        got = knn_append.master_append(Xg, d, i, tau=tau)
+        want = knn_append.plain(Xg, d, i, tau=tau)
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1], want[1])):
+            fail(f"knn_append differs from its plain version at {what}")
+        if cold:
+            c = knn_multi_e.all_knn_multi_e(Xg, E_max=d.shape[1], tau=tau,
+                                            k=d.shape[-1])
+            if not (torch.equal(got[0], c[0]) and torch.equal(got[1], c[1])):
+                fail(f"knn_append differs from a cold build at {what}")
+        return got
+
+    for L_new, E_max, tau, dt, k, tie in (
+            (100, 3, 1, 1, 20, True), (211, 6, 1, 64, 20, True),
+            (154, 4, 2, 7, 20, False), (400, 1, 1, 32, 20, True),
+            (300, 20, 1, 16, 22, False), (30, 4, 2, 2, 25, False),
+            (24, 6, 1, 3, 20, True)):
+        Xs = X[:4, 100:100 + L_new].contiguous()
+        if tie:
+            Xs = torch.round(Xs * 8) / 8
+        d, i = knn_multi_e.all_knn_multi_e(Xs[:, :L_new - dt], E_max=E_max,
+                                           tau=tau, k=k)
+        held(Xs, d, i, tau, f"L={L_new}, E_max={E_max}, tau={tau}, dt={dt}, "
+                            f"k={k}, ties={tie}")
+        if not tie:  # equal stored values keep their slot order: no ties
+            perm = torch.randperm(k, generator=torch.Generator().manual_seed(
+                k)).to(d.device)
+            held(Xs, d[..., perm].contiguous(), i[..., perm].contiguous(),
+                 tau, f"an unordered master, L={L_new}", cold=False)
+
+    N = X.shape[0]
+    dM, iM = knn_multi_e.all_knn_multi_e(X[:, :APPEND_L0].contiguous(),
+                                         E_max=E_MAX, tau=1, k=K_MASTER)
+    per_dt, row = {}, None
+    for dt in APPEND_DTS:
+        Xg = X[:, :APPEND_L0 + dt].contiguous()
+        got = held(Xg, dM, iM, 1, f"the path shape, dt={dt}", cold=False)
+        kfn = lambda: knn_append.master_append(Xg, dM, iM, tau=1)  # noqa
+        pfn = lambda: knn_append.plain(Xg, dM, iM, tau=1)  # noqa: E731
+        bound = bound_ms(Xg.numel() * 4 + dM.numel() * 8 + got[0].numel() * 8,
+                         append_ops(N, E_MAX, APPEND_L0, dt, K_MASTER))
+        per_dt[dt] = {"ms": time_ms(torch, kfn, 10),
+                      "device_ms": device_ms(torch, kfn, 5),
+                      "plain_ms": time_ms(torch, pfn, 1),
+                      "bound_ms": bound[0], "bound_by": bound[1]}
+        del got
+    # The library yardstick at Δt = 64: torch.topk over the same candidate
+    # blocks, every level's old-row merge block in one call and every
+    # level's new-row block in another (no tie promise; timed only).
+    dt = APPEND_DTS[-1]
+    Xg = X[:, :APPEND_L0 + dt].contiguous()
+    blocks = [ref.append_candidates(Xg, dM, iM, tau=1, e=e)
+              for e in range(E_MAX)]
+    old = torch.cat([b[0].reshape(-1, b[0].shape[-1]) for b in blocks])
+    new = torch.cat([b[2].reshape(-1, b[2].shape[-1]) for b in blocks])
+    del blocks
+    lib = time_ms(torch, lambda: (torch.topk(old, K_MASTER, largest=False),
+                                  torch.topk(new, K_MASTER, largest=False)),
+                  10)
+    del old, new
+    t = per_dt[dt]
+    row = kernel_row("knn_append", "src/repro_torch/kernels/csrc/knn_append.cu",
+                     "src/repro/kernels/knn_append.py:44", 0.0, t["ms"],
+                     t["plain_ms"], (t["bound_ms"], t["bound_by"]), lib,
+                     t["device_ms"])
+    return row, per_dt
+
+
+def check_variant_kernels(torch, X, x_long, pairwise_dist, knn_fused, topk,
+                          ref):
+    """The mxu distances within ``MXU_RTOL`` of ‖zᵢ‖² + ‖zⱼ‖² of their plain
+    version, the fused kNN bit-equal to its plain version and to the
+    two-kernel path (pairwise then top-k kernels): small edge shapes, then
+    the series at L = 10,000, E = 20, k = 21. Returns both rows there."""
+
+    def mxu_err(x, E, tau, what):
+        got = pairwise_dist.pairwise_distances_mxu(x, E=E, tau=tau)
+        want = pairwise_dist.plain_mxu(x, E=E, tau=tau)
+        rel = ((got.double() - want.double()).abs()
+               / pairwise_dist.mxu_scale(x, E=E, tau=tau))
+        worst = float(rel.max())
+        if got.shape != want.shape or not worst <= pairwise_dist.MXU_RTOL:
+            fail(f"pairwise_mxu differs from its plain version by {worst} "
+                 f"of the norm scale at {what}")
+        return worst, float((got - want).abs().max())
+
+    def fused_held(x, what, **kw):
+        got = knn_fused.all_knn_fused(x, **kw)
+        want = knn_fused.plain(x, **kw)
+        D = pairwise_dist.pairwise_distances(x, E=kw["E"], tau=kw["tau"])
+        two = topk.topk_select(D, k=kw["k"], max_idx=kw.get("max_idx"),
+                               exclude_self=kw.get("exclude_self", True))
+        del D
+        for a, b, c in zip(got, want, two):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                fail(f"knn_fused differs from its plain version or the "
+                     f"two-kernel path at {what}")
+
+    xs = X[5, :300].clone()
+    xs[150:190] = xs[10:50]  # a duplicated stretch: exact ties
+    worst = 0.0
+    for E, tau in ((1, 1), (3, 2), (20, 1)):
+        worst = max(worst, mxu_err(xs * 3.0 + 40.0, E, tau,
+                                   f"small, E={E}, tau={tau}")[0])
+    for kw in (dict(E=1, tau=1, k=2), dict(E=3, tau=2, k=4),
+               dict(E=20, tau=1, k=21), dict(E=4, tau=1, k=70, max_idx=30),
+               dict(E=3, tau=1, k=9, max_idx=120, exclude_self=False)):
+        fused_held(xs, f"small {kw}", **kw)
+
+    E, k = E_MAX, E_MAX + 1
+    L = x_long.shape[0]
+    Lp = L - (E - 1)
+    rel, err = mxu_err(x_long, E, 1, f"L={L}, E={E}")
+    Z = ref.delay_embed(x_long - x_long.mean(), E, 1).contiguous()
+    mfn = lambda: pairwise_dist.pairwise_distances_mxu(x_long, E=E)  # noqa
+    mxu_row = kernel_row(
+        "pairwise_distances_mxu", "src/repro_torch/kernels/csrc/pairwise_mxu.cu",
+        "src/repro/kernels/pairwise_dist.py:50", err, time_ms(torch, mfn, 10),
+        time_ms(torch, lambda: pairwise_dist.plain_mxu(x_long, E=E, tau=1),
+                3),
+        bound_ms(L * 4 + Lp * Lp * 4, (2.0 * E + 4) * Lp * Lp),
+        time_ms(torch, lambda: torch.cdist(
+            Z, Z, compute_mode="use_mm_for_euclid_dist").square(), 10),
+        device_ms(torch, mfn, 5))
+    del Z
+    fused_held(x_long, f"L={L}, E={E}, k={k}", E=E, tau=1, k=k)
+    ffn = lambda: knn_fused.all_knn_fused(x_long, E=E, k=k)  # noqa: E731
+    fused_row = kernel_row(
+        "knn_fused", "src/repro_torch/kernels/csrc/knn_fused.cu",
+        "src/repro/kernels/knn_fused.py:29", 0.0, time_ms(torch, ffn, 10),
+        time_ms(torch, lambda: knn_fused.plain(x_long, E=E, k=k), 2),
+        bound_ms(L * 4 + Lp * k * 8, 3.0 * E * Lp * Lp), None,
+        device_ms(torch, ffn, 5))
+    return [mxu_row, fused_row], {"mxu_small_max_rel_err": worst,
+                                  "mxu_long_max_rel_err": rel}
+
+
 def solve_yardstick(torch, X, smap_gram, groups, theta_grid):
     """The S-Map engine's solve (``cholesky_ex``, then two triangular
     solves) against ``cholesky_ex`` + ``torch.cholesky_solve`` on the same
@@ -504,6 +690,151 @@ def solve_yardstick(torch, X, smap_gram, groups, theta_grid):
     return out
 
 
+def run_append_path(torch, np, panel, dev, EDM, panel_master, knn_append,
+                    reset_counts, counts):
+    """The streaming append path at Fish1_Normo's shape: bind the first
+    ``APPEND_L0`` columns, ``optimal_E()`` (builds the master), then on a
+    fresh session holding that cached master each time, ``append`` the
+    next Δt columns. The grown master must equal a cold session's on the
+    grown panel bit for bit, and ``optimal_E()`` after it the cold E_opt
+    and ρ bits; one ``xmap()`` runs. Returns (per-Δt record, launches)."""
+    base = EDM(panel[:, :APPEND_L0], E_max=E_MAX)
+    base.optimal_E()
+    hit = base._cache["master"]
+
+    def warm():  # a session holding the cached master; append makes new
+        s = EDM(panel[:, :APPEND_L0], E_max=E_MAX)  # tensors, so the
+        s._cache["master"] = hit  # base's are never changed
+        return s
+
+    out, launches = {}, {}
+    for dt in APPEND_DTS:
+        delta = panel[:, APPEND_L0:APPEND_L0 + dt]
+        grown = panel[:, :APPEND_L0 + dt]
+        s = warm()
+        reset_counts()
+        _, peak = peak_extra(torch, lambda: s.append(delta))
+        c = {n: v for n, v in counts().items() if v}
+        if not 1 <= c.get("knn_append", 0) <= 2 * E_MAX:
+            fail(f"append of dt={dt} launched {c}")
+        for n, v in c.items():
+            launches[n] = launches.get(n, 0) + v
+        cold = EDM(grown, E_max=E_MAX)
+        E_c, rho_c = cold.optimal_E()
+        wm, cm = s._cache["master"], cold._cache["master"]
+        same = torch.equal(wm[0], cm[0]) and torch.equal(wm[1], cm[1])
+        if not same:
+            fail(f"the grown master at dt={dt} differs from a cold build")
+        E_w, rho_w = s.optimal_E()
+        if not (np.array_equal(E_w, E_c) and np.array_equal(rho_w, rho_c)):
+            fail(f"optimal_E after the append of dt={dt} differs from the "
+                 f"cold session's")
+        xm = s.xmap()
+        if xm.shape != (N_SERIES, N_SERIES) or not np.isfinite(xm).all():
+            fail(f"xmap after the append of dt={dt}: malformed")
+        sessions = [warm() for _ in range(RUNS)]
+        t_app = [host_s(torch, lambda w=w: w.append(delta))[1]
+                 for w in sessions]
+        Xg = torch.as_tensor(grown, device=dev)
+        t_cold = [host_s(torch, lambda: panel_master(
+            Xg, E_max=E_MAX, tau=1, k=K_MASTER, impl="auto"))[1]
+            for _ in range(RUNS)]
+        w = warm()
+        prof = device_profile(torch, lambda: w.append(delta))
+        out[dt] = {"append_s": spread(t_app), "cold_master_s": spread(t_cold),
+                   "speedup_median": statistics.median(t_cold)
+                   / statistics.median(t_app),
+                   "launches": c, "device_busy_s": prof["device_busy_s"],
+                   "idle_share": prof["idle_share"],
+                   "device_kernels": prof["kernels"],
+                   "peak_extra_bytes": peak, "master_bit_equal_cold": same,
+                   "E_opt_equal": True, "rho_bit_equal": True}
+        del s, cold, sessions, w, wm, cm
+    return out, launches
+
+
+def run_variants_path(torch, X, x_long, core, ops, pairwise_dist, ref,
+                      reset_counts, counts):
+    """``core.all_knn(x, E=E, variant="mxu")`` and ``ops.all_knn(x, E=E,
+    fused=True)`` over the 154 series at L = 1600 for E = 3 and 20, and
+    over one series at L = 10,000 (E = 20), with the launches of those
+    calls. Then, against the two-kernel vpu tables: fused bit-equal, mxu's
+    index sets equal wherever the k-th and (k+1)-th distances are further
+    apart than twice the mxu tolerance; and the device memory of the fused
+    and the two-kernel calls at L = 10,000."""
+    series = [(E, s) for E in VARIANT_ES for s in range(X.shape[0])]
+    reset_counts()
+    outs = {}
+    for E, s in series:
+        outs[E, s] = (core.all_knn(X[s], E=E, variant="mxu"),
+                      ops.all_knn(X[s], E=E, fused=True))
+    outs["long"] = (core.all_knn(x_long, E=E_MAX, variant="mxu"),
+                    ops.all_knn(x_long, E=E_MAX, fused=True))
+    torch.cuda.synchronize()
+    launches = {n: v for n, v in counts().items() if v}
+    want = {"pairwise_distances_mxu": len(series) + 1,
+            "topk_select": len(series) + 1, "knn_fused": len(series) + 1}
+    if launches != want:
+        fail(f"the variants path launched {launches}, not {want}")
+
+    clear = rows = 0
+    for key, (mxu, fused) in outs.items():
+        x, E = (x_long, E_MAX) if key == "long" else (X[key[1]], key[0])
+        k = E + 1
+        vd, vi = ops.all_knn(x, E=E, k=k + 1)  # one more: the gap
+        if not (torch.equal(fused[0], vd[:, :k]) and
+                torch.equal(fused[1], vi[:, :k])):
+            fail(f"fused all_knn differs from the two-kernel path at {key}")
+        xd = x.double()
+        Zc = ref.delay_embed(xd - xd.mean(), E, 1)
+        n = (Zc * Zc).sum(-1)
+        sq = vd.double() ** 2
+        tol = pairwise_dist.MXU_RTOL * (n[:, None] + n[vi[:, k - 1:k + 1]
+                                                       .long()])
+        ok = (sq[:, k] - sq[:, k - 1]) > 2 * tol.max(dim=1).values
+        got = torch.sort(mxu.idx[ok], dim=1).values
+        if not torch.equal(got, torch.sort(vi[ok, :k], dim=1).values):
+            fail(f"mxu neighbour sets differ from vpu's away from near-ties "
+                 f"at {key}")
+        clear += int(ok.sum())
+        rows += ok.numel()
+
+    Lp = x_long.shape[0] - (E_MAX - 1)
+    fused_peak = peak_extra(torch, lambda: ops.all_knn(x_long, E=E_MAX,
+                                                       fused=True))[1]
+    two_peak = peak_extra(torch, lambda: ops.all_knn(x_long, E=E_MAX))[1]
+    if not fused_peak < 4 * Lp * Lp:
+        fail(f"fused all_knn at L={x_long.shape[0]} allocated {fused_peak} "
+             f"B: an (Lp, Lp) buffer is {4 * Lp * Lp} B")
+    calls = {f"mxu_E{E}": lambda E=E: core.all_knn(X[0], E=E, variant="mxu")
+             for E in VARIANT_ES}
+    calls.update({f"fused_E{E}": lambda E=E: ops.all_knn(X[0], E=E,
+                                                         fused=True)
+                  for E in VARIANT_ES})
+    calls.update({f"vpu_E{E}": lambda E=E: ops.all_knn(X[0], E=E)
+                  for E in VARIANT_ES})
+    calls["mxu_long"] = lambda: core.all_knn(x_long, E=E_MAX, variant="mxu")
+    calls["fused_long"] = lambda: ops.all_knn(x_long, E=E_MAX, fused=True)
+    calls["vpu_long"] = lambda: ops.all_knn(x_long, E=E_MAX)
+    for fn in calls.values():
+        fn()
+    # Device time of each variant over the 154 series at E = 20.
+    prof = {name: device_profile(torch, lambda fn=fn: [
+        fn(X[s]) for s in range(X.shape[0])]) for name, fn in (
+            ("mxu_154_E20", lambda x: core.all_knn(x, E=E_MAX,
+                                                   variant="mxu")),
+            ("fused_154_E20", lambda x: ops.all_knn(x, E=E_MAX, fused=True)),
+            ("vpu_154_E20", lambda x: ops.all_knn(x, E=E_MAX)))}
+    return {"launches": launches, "device_profile": prof,
+            "seconds_per_call": {n: spread([host_s(torch, fn)[1]
+                                            for _ in range(RUNS)])
+                                 for n, fn in calls.items()},
+            "mxu_rows_away_from_near_ties": clear, "mxu_rows": rows,
+            "long_L": x_long.shape[0], "long_fused_peak_extra_bytes": fused_peak,
+            "long_two_kernel_peak_extra_bytes": two_peak,
+            "long_distance_matrix_bytes": 4 * Lp * Lp}, launches
+
+
 def run_links(sess, links):
     """The slice path's link calls on one session → per-link results."""
     out = []
@@ -525,13 +856,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
+    from repro_torch import core
     from repro_torch.core.ccm import normalize_lib_sizes
     from repro_torch.data.timeseries import forced_network_panel
     from repro_torch.edm import EDM
+    from repro_torch.edm.plan import panel_master
     from repro_torch.core.smap_engine import (DEFAULT_THETAS,
                                               _series_per_launch)
-    from repro_torch.kernels import (_build, knn_batch, knn_multi_e, lookup,
-                                     pairwise_dist, ref, smap_gram, topk)
+    from repro_torch.kernels import (_build, knn_append, knn_batch, knn_fused,
+                                     knn_multi_e, lookup, ops, pairwise_dist,
+                                     ref, smap_gram, topk)
 
     # The plain versions' matrix products in full float32, as the kernels.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -567,9 +901,19 @@ def main() -> None:
     smap_row, smap_shapes = check_smap_kernel(torch, X, smap_gram, ref,
                                               DEFAULT_THETAS)
     rows_out.append(smap_row)
+    append_row, append_shapes = check_append_kernel(torch, X, knn_multi_e,
+                                                    knn_append, ref)
+    rows_out.append(append_row)
+    x_long = torch.as_tensor(
+        forced_network_panel(4, LONG_L, seed=SEED)[0][3], device=dev)
+    variant_rows, variant_errs = check_variant_kernels(
+        torch, X, x_long, pairwise_dist, knn_fused, topk, ref)
+    rows_out += variant_rows
     for r in rows_out:
         print(json.dumps({"kernel_check": r}))
     print(json.dumps({"smap_gram_shapes": smap_shapes}))
+    print(json.dumps({"knn_append_shapes": append_shapes,
+                      "mxu_errors": variant_errs}))
 
     wrappers = {"knn_multi_e": knn_multi_e.all_knn_multi_e,
                 "knn_batch": knn_batch.all_knn_batch,
@@ -578,7 +922,10 @@ def main() -> None:
                 "topk_select": topk.topk_select,
                 "topk_select_sizes": topk.topk_select_sizes,
                 "lookup": lookup.lookup,
-                "smap_gram": smap_gram.smap_gram}
+                "smap_gram": smap_gram.smap_gram,
+                "knn_append": knn_append.master_append,
+                "pairwise_distances_mxu": pairwise_dist.pairwise_distances_mxu,
+                "knn_fused": knn_fused.all_knn_fused}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -885,11 +1232,26 @@ def main() -> None:
         if not errs[name] <= smap_rho_tol(SMAP_THETA):
             fail(f"{name} differs from the plain run by {errs[name]}")
 
+    # ------------------------------------------------- 7. append path
+    append_out, append_launches = run_append_path(
+        torch, np, panel, dev, EDM, panel_master, knn_append, reset_counts,
+        counts)
+    print(json.dumps({"append_path": {"L0": APPEND_L0, "per_dt": append_out}}))
+
+    # ------------------------------------------- 8. kNN variants path
+    variants_out, variant_launches = run_variants_path(
+        torch, X, x_long, core, ops, pairwise_dist, ref, reset_counts, counts)
+    print(json.dumps({"variants_path": variants_out}))
+
+    path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
+               "lookup_rho": main_launches, "smap_gram": smap_launches,
+               "knn_append": append_launches,
+               "pairwise_distances_mxu": variant_launches,
+               "knn_fused": variant_launches}
     for r in rows_out:
-        r["launches"] = (main_launches if r["name"] in
-                         ("knn_multi_e", "knn_batch", "lookup_rho")
-                         else smap_launches if r["name"] == "smap_gram"
-                         else slice_launches)[r["name"]]
+        r["launches"] = path_of.get(r["name"], slice_launches)[r["name"]]
+        if r["launches"] <= 0:
+            fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "device_ms"} for r in rows_out]}))
     print(json.dumps({"ok": True, "device": {

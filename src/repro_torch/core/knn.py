@@ -28,9 +28,13 @@ class KnnTable:
 
 def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
             exclude_self: bool = True, max_idx=None, impl: str = "auto",
-            variant: str = "vpu") -> KnnTable:
-    """Pairwise distances + top-k over one series. k defaults to E + 1."""
+            variant: str = "vpu", fused: bool = False) -> KnnTable:
+    """Pairwise distances + top-k over one series. k defaults to E + 1.
+
+    ``variant`` and ``fused`` pass through to ``ops.all_knn``.
+    """
     k = E + 1 if k is None else int(k)
     dists, idx = ops.all_knn(x, E=E, tau=tau, k=k, exclude_self=exclude_self,
-                             max_idx=max_idx, impl=impl, variant=variant)
+                             max_idx=max_idx, impl=impl, variant=variant,
+                             fused=fused)
     return KnnTable(dists=dists, idx=idx, E=E, tau=tau, k=k)

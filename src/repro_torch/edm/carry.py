@@ -5,7 +5,9 @@ EDM has no weights; a session's state is its kNN master
 optimal-E sweep. ``carry_session_cache`` takes that state as numpy arrays
 (a ``repro.edm.EDM`` session's ``_cache`` converted with ``np.asarray``)
 and installs it in a ``repro_torch`` session bound to the same panel, so
-that both compute ``xmap`` from the same master.
+that both compute ``xmap`` from the same master. A carried master may be
+grown by ``EDM.append`` like one the session built: the grown tables are
+the bits the reference's ``EDM.append`` gives.
 """
 
 from __future__ import annotations

@@ -64,6 +64,20 @@ def panel_master(X, *, E_max, tau, k, impl):
                                exclude_self=True, max_idx=None, impl=impl)
 
 
+def panel_master_append(X, dM, iM, *, tau, impl):
+    """Grow a whole panel's master tables to cover appended points.
+
+    ``X`` is the grown (N, L_new) panel, ``dM``/``iM`` the stored
+    ``panel_master`` tables of its (N, L_old) prefix → (N, E_max, L_new, k)
+    tables bit-identical to ``panel_master`` on the grown panel, at
+    O(Lp·(k + Δt)) per row and level instead of O(Lp²). One
+    ``ops.master_append`` call for the whole panel (one kernel launch on
+    the GPU) where the reference maps the series one at a time. k_master
+    is kept, so ``master_slack_covers`` carries over unchanged.
+    """
+    return ops.master_append(X, dM, iM, tau=tau, impl=impl)
+
+
 def _derive_idx(iE, *, k, max_idx):
     """First k master indices surviving a ``max_idx`` cap (stable order).
 

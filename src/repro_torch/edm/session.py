@@ -10,6 +10,7 @@ Bind a panel and a config once::
     sig = sess.surrogate_test(0, 1)    # CCM significance vs a null ensemble
     curves = sess.smap()               # S-Map ρ(θ) per series
     smap_xm = sess.xmap(method="smap") # S-Map cross-map matrix
+    sess.append(delta)                 # grow the panel; the master grows
 
 Every method builds a ``Plan`` (``sess.plan(task)`` shows it), then runs
 it. The multi-E kNN master built by ``optimal_E`` is held in the session
@@ -20,7 +21,9 @@ the master's slack cannot cover runs one pass of the convergence engine
 (``core.ccm.ccm_convergence_caps``). ``cache=False`` sessions hold no
 master: ``optimal_E`` and ``simplex`` run the per-series primitives of
 ``core.simplex``. ``smap`` and ``xmap(method="smap")`` run the batched
-S-Map Gram engine (``core.smap_engine``) once per E-group.
+S-Map Gram engine (``core.smap_engine``) once per E-group. ``append``
+grows the panel and a cached master in one merge launch
+(``plan.panel_master_append``), bit-identical to a rebuild.
 
 Methods of ``repro.edm.EDM`` that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -51,6 +54,7 @@ from repro_torch.edm.plan import (
     master_group_batch_bytes,
     master_slack_covers,
     panel_master,
+    panel_master_append,
     rho_curves_from_master,
     simplex_skill_from_master,
 )
@@ -273,6 +277,67 @@ class EDM:
         hit = self._cache["master"] = (dM, iM, k_m, E_levels)
         return hit
 
+    def master_nbytes(self) -> int:
+        """Resident bytes of the cached multi-E kNN master (0 if none):
+        the session's one O(N·E·L·k) cache."""
+        hit = self._cache.get("master")
+        if hit is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in hit[:2])
+
+    def evict_master(self) -> int:
+        """Drop the cached kNN master; returns the bytes freed.
+
+        Only a memory event: the next method that needs the master
+        rebuilds it from the current panel, and append ≡ cold rebuild
+        (bit-identical) makes every later answer, and every later append,
+        the same bits as a never-evicted session's.
+        """
+        freed = self.master_nbytes()
+        if freed:
+            self._cache.pop("master", None)
+            self._bump("knn_master_evictions")
+        return freed
+
+    def append(self, delta) -> list[dict]:
+        """Grow the bound panel by Δt points, updating the caches.
+
+        The serving tick: the screen covers only the new columns
+        (``Dataset.append``), and a cached kNN master grows by
+        ``panel_master_append`` — one merge launch for the panel,
+        bit-identical to the cold O(L²) rebuild — so a warm session
+        absorbs a tick without paying its build again. The optimal-E
+        curves summarize the whole panel and are dropped; the master is
+        kept. Under ``on_invalid="drop"`` the master rows of dropped
+        series are removed to match the panel. A session without a
+        master stays without one. Returns ``Dataset.append``'s records
+        (pre-append indices).
+        """
+        c = self.config
+        old_N = self.data.N
+        with telemetry.span("session.append", N=old_N):
+            records = self.data.append(delta)  # raises before mutating
+            self._cache.pop("rho", None)
+            hit = self._cache.get("master")
+            if hit is not None and c.cache:
+                dM, iM, k_m, lv = hit
+                if records and self.data.N != old_N:  # drop compaction
+                    keep = torch.as_tensor(np.setdiff1d(
+                        np.arange(old_N), [r["index"] for r in records]),
+                        device=self.device)
+                    dM, iM = dM[keep], iM[keep]
+                dt = self.data.L - int(dM.shape[2])
+                with telemetry.span("session.master_append", dt=dt,
+                                    E_levels=lv, N=self.data.N):
+                    dM, iM = panel_master_append(
+                        self.data.panel, dM, iM, tau=c.tau, impl=self._impl)
+                self._cache["master"] = (dM, iM, k_m, lv)
+                self._bump("knn_master_appends")
+            else:
+                self._cache.pop("master", None)
+            self._bump("appends")
+        return records
+
     def _rho(self):
         """Cached (E_opt, rho-curve) pair, computing it on first use."""
         hit = self._cache.get("rho")
@@ -492,9 +557,6 @@ class EDM:
             return SurrogateResult(float(rho[0]), null[0], float(pval[0]),
                                    method, num_surrogates)
         return SurrogateResult(rho, null, pval, method, num_surrogates)
-
-    def append(self, delta):
-        raise _not_ported("EDM.append", "8 (Append and serving)")
 
     def ccm_batch(self, pairs, *, E: int) -> np.ndarray:
         """Full-library CCM skill for many (lib, target) pairs → (n,) ρ.

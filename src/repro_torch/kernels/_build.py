@@ -25,7 +25,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: One shared library per ``csrc/<name>.cu``.
 KERNELS = ("knn_multi_e", "knn_batch", "lookup_rho", "lookup",
-           "pairwise_dist", "topk", "smap_gram")
+           "pairwise_dist", "topk", "smap_gram", "knn_append",
+           "pairwise_mxu", "knn_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -116,6 +117,12 @@ _SIGNATURES = {
     "smap_gram_launch": ("smap_gram",
                          [_P, _I, _I, _P, _LL, _I, _P, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P]),
+    "knn_append_launch": ("knn_append",
+                          [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                           _P, _P]),
+    "pairwise_mxu_launch": ("pairwise_mxu", [_P, _I, _I, _I, _P, _P]),
+    "knn_fused_launch": ("knn_fused",
+                         [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import telemetry
-from repro_torch.kernels import knn_batch, knn_multi_e, pairwise_dist, topk
+from repro_torch.kernels import (knn_append, knn_batch, knn_fused,
+                                 knn_multi_e, pairwise_dist, topk)
 from repro_torch.kernels import lookup as _lookup_k
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import smap_gram as _smap_gram_k
@@ -29,6 +30,9 @@ delay_embed = _ref.delay_embed
 
 #: Every implementation name the dispatch layer accepts.
 IMPLS = ("auto", "ref")
+#: The pairwise-distance variants: the strict lag chain ("vpu", bit-exact)
+#: and the norm expansion of the centered embedding ("mxu", a tolerance).
+VARIANTS = ("vpu", "mxu")
 
 
 def check_impl(impl: str) -> str:
@@ -49,26 +53,32 @@ def _tel(op: str, kernel: bool, **attrs) -> None:
                         **attrs)
 
 
-def _no_variant(variant: str) -> None:
-    if variant == "mxu":
-        raise NotImplementedError(
-            "variant='mxu' (the matrix-unit distance kernel) is not ported "
-            "yet: ROADMAP queue 2, item 6")
-    if variant != "vpu":
-        raise ValueError(f"unknown variant {variant!r}; expected 'vpu'")
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of "
+                         f"{VARIANTS}")
 
 
 def pairwise_distances(x: torch.Tensor, *, E: int, tau: int = 1,
                        variant: str = "vpu",
                        impl: str = "auto") -> torch.Tensor:
-    """(Lp, Lp) squared distances of one series' delay embedding
-    (fused, paper Alg. 1); not mean-centered."""
-    _no_variant(variant)
+    """(Lp, Lp) squared distances of one series' delay embedding (fused,
+    paper Alg. 1). ``"vpu"``: the strict lag chain, not mean-centered;
+    ``"mxu"``: ‖zᵢ‖² + ‖zⱼ‖² − 2⟨zᵢ, zⱼ⟩ of the mean-centered embedding,
+    clamped at ≥ 0, within ``pairwise_dist.MXU_RTOL`` of that scale. (The
+    reference's ``impl="ref"`` ignores the variant; here each variant
+    has its own plain version.)"""
+    _check_variant(variant)
     kernel = _kernel_path(x, impl)
-    _tel("pairwise_distances", kernel, E=E, tau=tau, L=int(x.shape[-1]))
-    if not kernel:
-        return _ref.pairwise_distances(x, E=E, tau=tau)
-    return pairwise_dist.pairwise_distances(x, E=E, tau=tau)
+    _tel("pairwise_distances", kernel, E=E, tau=tau, variant=variant,
+         L=int(x.shape[-1]))
+    if variant == "mxu":
+        fn = (pairwise_dist.pairwise_distances_mxu if kernel
+              else _ref.pairwise_distances_mxu)
+    else:
+        fn = (pairwise_dist.pairwise_distances if kernel
+              else _ref.pairwise_distances)
+    return fn(x, E=E, tau=tau)
 
 
 def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
@@ -103,15 +113,27 @@ def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
             exclude_self: bool = True, max_idx=None, impl: str = "auto",
             variant: str = "vpu", fused: bool = False):
     """All-kNN over one library series (paper §3.3): pairwise distances
-    then top-k → (dists (Lp, k), idx (Lp, k)); k defaults to E + 1."""
-    if fused:
-        raise NotImplementedError(
-            "fused=True (the single-kernel pairwise + top-k) is not ported "
-            "yet: ROADMAP queue 2, item 9")
-    _no_variant(variant)
+    then top-k → (dists (Lp, k), idx (Lp, k)); k defaults to E + 1.
+
+    ``fused=True`` runs one kernel that never writes the (Lp, Lp) matrix
+    (``knn_fused``), bit-equal to the two-kernel ``"vpu"`` path; it takes
+    no other variant. ``variant="mxu"`` selects on the norm-expansion
+    distances, whose indices equal ``"vpu"``'s wherever the k-th and
+    (k+1)-th distances are further apart than the variant's tolerance.
+    """
+    _check_variant(variant)
+    if fused and variant != "vpu":
+        raise ValueError("fused=True computes the strict-chain ('vpu') "
+                         f"distances; got variant={variant!r}")
     k = E + 1 if k is None else int(k)
-    _tel("all_knn", _kernel_path(x, impl), E=E, k=k, L=int(x.shape[-1]))
-    D = pairwise_distances(x, E=E, tau=tau, impl=impl)
+    kernel = _kernel_path(x, impl)
+    _tel("all_knn", kernel, E=E, k=k, fused=fused, variant=variant,
+         L=int(x.shape[-1]))
+    if fused:
+        fn = knn_fused.all_knn_fused if kernel else _ref.all_knn
+        return fn(x, E=E, tau=tau, k=k, exclude_self=exclude_self,
+                  max_idx=max_idx)
+    D = pairwise_distances(x, E=E, tau=tau, variant=variant, impl=impl)
     return topk_select(D, k=k, exclude_self=exclude_self, max_idx=max_idx,
                        impl=impl)
 
@@ -149,6 +171,26 @@ def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
     return knn_multi_e.all_knn_multi_e(
         X, E_max=E_max, tau=tau, k=k, exclude_self=exclude_self,
         max_idx=max_idx)
+
+
+def master_append(X: torch.Tensor, dists: torch.Tensor, idx: torch.Tensor,
+                  *, tau: int = 1, impl: str = "auto"):
+    """Grow multi-E master tables by the points appended to ``X``.
+
+    ``X`` is the grown (N, L_new) panel (or one (L_new,) series);
+    ``dists``/``idx`` the stored uniform-k ``all_knn_multi_e`` tables of
+    its prefix, (N, E_max, L_old, k_m) (or without N). Returns the grown
+    tables, bit-identical to a cold ``all_knn_multi_e`` on ``X``; one
+    kernel launch for the whole panel on the GPU.
+    """
+    kernel = _kernel_path(X, impl)
+    _tel("master_append", kernel, E_max=int(dists.shape[-3]),
+         L=int(X.shape[-1]), dt=int(X.shape[-1]) - int(dists.shape[-2]))
+    fn = knn_append.master_append if kernel else _ref.master_append
+    if X.ndim == 1:
+        d, i = fn(X[None], dists[None], idx[None], tau=tau)
+        return d[0], i[0]
+    return fn(X, dists, idx, tau=tau)
 
 
 def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,

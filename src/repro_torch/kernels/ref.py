@@ -237,6 +237,17 @@ def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
     return _sorted_roots(sv[:, :k]), si[:, :k].to(torch.int32)
 
 
+def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
+            exclude_self: bool = True,
+            max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """All-kNN over one series, ``pairwise_distances`` then ``topk_select``
+    → (Lp, k) each; k defaults to E + 1. The plain version of the fused
+    kernel, which must give the same bits without the (Lp, Lp) matrix."""
+    k = E + 1 if k is None else int(k)
+    return topk_select(pairwise_distances(x, E=E, tau=tau), k=k,
+                       exclude_self=exclude_self, max_idx=max_idx)
+
+
 def check_sizes_caps(max_idxs) -> tuple[int, ...]:
     """Validate a multi-cap tuple (non-empty, >= 0, ascending) → ints."""
     caps = tuple(int(m) for m in max_idxs)
@@ -502,3 +513,203 @@ def smap_gram_abs(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
     """
     return _smap_products(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,
                           exclude_self=exclude_self, absolute=True)
+
+
+# --------------------------------------------------------------------------
+# Norm-expansion distances (the matrix-unit variant).
+# --------------------------------------------------------------------------
+
+
+def pairwise_distances_mxu(x: torch.Tensor, *, E: int,
+                           tau: int) -> torch.Tensor:
+    """(Lp, Lp) squared distances by norm expansion, clamped at ≥ 0.
+
+    ‖zᵢ‖² + ‖zⱼ‖² − 2⟨zᵢ, zⱼ⟩ on the delay embedding of the series centered
+    by its float32 mean (the reference's ``variant="mxu"``: centering keeps
+    the expansion's cancellation small and leaves the distances as they
+    are). Never bit-equal to ``pairwise_distances``: the cross term is a
+    sum of products, so results are held to a tolerance relative to
+    ‖zᵢ‖² + ‖zⱼ‖².
+    """
+    x = x.float()
+    Z = delay_embed(x - x.mean(), E, tau)
+    n = (Z * Z).sum(-1)
+    return torch.clamp(n[:, None] + n[None, :] - 2.0 * (Z @ Z.T), min=0.0)
+
+
+# --------------------------------------------------------------------------
+# Incremental master append (the serving tick's stream-in/merge).
+#
+# A multi-E master is the uncapped top-k_m table of ``all_knn_multi_e``.
+# When every series grows by dt points, level e's library grows by exactly
+# dt columns (Lp_e = L − e·τ), and the table grows without the O(Lp²)
+# rebuild:
+#
+#   - OLD rows (i < Lp_old_e): their coordinates are unchanged, so an old
+#     column that survives into the new top-k_m already sits in the stored
+#     top-k_m. Merge the k_m stored candidates with the dt new columns.
+#   - NEW rows (Lp_old_e ≤ i < Lp_new_e): one full scan of the grown
+#     library, masked as the cold build masks it (columns past Lp_new_e − 1,
+#     and self).
+#
+# The grown table is bit-identical to a cold rebuild. Three rules (the
+# reference's, ``repro/kernels/ref.py``'s append section) make it hold:
+#
+#   1. Every distance is the strict two-rounding chain (``strict_sq``), so
+#      a stored candidate's recomputed value, the new-column values and the
+#      cold accumulator are the same bits whatever the buffer shapes.
+#   2. Candidates are merged as squared distances, before the root (the
+#      root is many-to-one in float32), laid out [stored slots, new
+#      columns]: stored indices are < Lp_old_e ≤ the new ones, so a stable
+#      sort resolves equal values in column order — the cold tie rule.
+#   3. A stored garbage slot (dist inf, from k_m > the level's candidate
+#      count) carries the old build's index pattern, whose indices collide
+#      with now-valid columns. It enters as +inf, and every surviving
+#      non-finite slot is rewritten to the cold pattern afterwards
+#      (``normalize_garbage``).
+#
+# The reference's merge works in the negated domain (``lax.top_k`` keeps
+# the largest); here it is the squared distance itself, smallest first.
+# fl(a − b) = −fl(b − a) and fl(−s) = −fl(s) exactly, so both domains
+# carry the same magnitudes.
+# --------------------------------------------------------------------------
+
+
+def check_append_args(X: torch.Tensor, dists: torch.Tensor,
+                      idx: torch.Tensor, tau: int) -> int:
+    """Validate panel master_append inputs; returns dt (the appended width).
+
+    X (N, L_new); dists/idx (N, E_max, L_old, k_m).
+    """
+    if X.ndim != 2 or dists.ndim != 4:
+        raise ValueError(f"X must be (N, L) and the master (N, E_max, L, k), "
+                         f"got {tuple(X.shape)} and {tuple(dists.shape)}")
+    if idx.shape != dists.shape:
+        raise ValueError(f"dists/idx shape mismatch: {tuple(dists.shape)} vs "
+                         f"{tuple(idx.shape)}")
+    N, E_max, L_old, _ = dists.shape
+    if X.shape[0] != N:
+        raise ValueError(f"{X.shape[0]} series but the master has {N}")
+    dt = int(X.shape[-1]) - L_old
+    if dt < 1:
+        raise ValueError(f"append needs at least one new point, got dt={dt}")
+    num_embedded(L_old, E_max, tau)  # stored master must already be valid
+    return dt
+
+
+def _lagged(X: torch.Tensor, E_max: int, tau: int) -> list[torch.Tensor]:
+    """[x[.., l·τ : l·τ + L]] for l < E_max, over the zero-padded series."""
+    L = X.shape[-1]
+    xpad = torch.nn.functional.pad(X.float(), (0, (E_max - 1) * tau))
+    return [xpad[..., l * tau:l * tau + L] for l in range(E_max)]
+
+
+def _slab_level(xls, e: int, r0: int, r1: int) -> torch.Tensor:
+    """(N, r1 − r0, L) unmasked level-e accumulators of rows [r0, r1)
+    against every column."""
+    acc = torch.zeros((xls[0].shape[0], r1 - r0, xls[0].shape[-1]),
+                      dtype=torch.float32, device=xls[0].device)
+    for l in range(e + 1):
+        xl = xls[l]
+        acc = acc + strict_sq(xl[:, r0:r1, None] - xl[:, None, :])
+    return acc
+
+
+def append_new_row_slab(X: torch.Tensor, *, dt: int, E_max: int,
+                        tau: int) -> torch.Tensor:
+    """(N, E_max, dt, L_new) squared distances of the dt newest rows of
+    each level against every column, unmasked: entry [s, e, r, j] equals
+    the cold accumulator at (row Lp_old_e + r, column j) wherever that is
+    valid. The reference returns the same values negated."""
+    L_new = X.shape[-1]
+    xls = _lagged(X, E_max, tau)
+    return torch.stack([
+        _slab_level(xls, e, L_new - dt - e * tau, L_new - e * tau)
+        for e in range(E_max)], dim=1)
+
+
+def normalize_garbage(vals: torch.Tensor, ik: torch.Tensor,
+                      rows: torch.Tensor) -> torch.Tensor:
+    """Rewrite the indices of non-finite slots to the cold build's pattern.
+
+    ``vals`` (…, rows, k) merged squared distances in ascending order,
+    ``ik`` their indices, ``rows`` (rows,) the row ids. Garbage survives a
+    merge only when the finite count equals the row's valid-column count,
+    so the cold pattern is self at the first garbage slot, then the slot
+    id.
+    """
+    finite = torch.isfinite(vals)
+    nfin = finite.sum(-1, keepdim=True)
+    slot = torch.arange(vals.shape[-1], device=vals.device)
+    garb = torch.where(slot == nfin, rows[:, None].to(slot.dtype), slot)
+    return torch.where(finite, ik, garb.to(ik.dtype))
+
+
+def append_candidates(X: torch.Tensor, dists: torch.Tensor,
+                      idx: torch.Tensor, *, tau: int, e: int):
+    """Level e's merge candidates (squared distances, before the root).
+
+    X (N, L_new) grown panel, dists/idx (N, E_max, L_old, k_m) its
+    prefix's master. Returns (old, old_idx, new): ``old`` (N, Lp_old,
+    k_m + dt) the old rows' stored candidates recomputed (+inf where a
+    slot held none) then their dt new columns, ``old_idx`` those columns'
+    indices, ``new`` (N, dt, L_new) the new rows against every column,
+    masked as the cold build masks them (+inf). The grown level is the
+    k_m smallest of each row in (value, position) order.
+    """
+    N, _, L_old, k_m = dists.shape
+    L_new = X.shape[-1]
+    dt = L_new - L_old
+    dev = X.device
+    xls = _lagged(X, e + 1, tau)
+    Lp_old, Lp_new = L_old - e * tau, L_new - e * tau
+    slab = _slab_level(xls, e, Lp_old, Lp_new)  # (N, dt, L_new)
+    i_o = idx[:, e, :Lp_old].long()
+    ok = torch.isfinite(dists[:, e, :Lp_old])
+    jj = torch.clamp(i_o, min=0).reshape(N, -1)  # garbage/PAD: any column
+    acc = torch.zeros((N, Lp_old, k_m), dtype=torch.float32, device=dev)
+    for l in range(e + 1):
+        xl = xls[l]
+        xj = torch.gather(xl, 1, jj).reshape(N, Lp_old, k_m)
+        acc = acc + strict_sq(xl[:, :Lp_old, None] - xj)
+    old = torch.cat([torch.where(ok, acc, _INF),
+                     slab[:, :, :Lp_old].transpose(1, 2)], dim=2)
+    new_cols = (Lp_old + torch.arange(dt, device=dev)).expand(N, Lp_old, dt)
+    old_idx = torch.cat([i_o, new_cols], dim=2)
+    cols = torch.arange(L_new, device=dev)
+    rows_n = Lp_old + torch.arange(dt, device=dev)
+    inval = (cols[None, :] > Lp_new - 1) | (cols[None, :] == rows_n[:, None])
+    return old, old_idx, torch.where(inval, _INF, slab)
+
+
+def master_append(X: torch.Tensor, dists: torch.Tensor, idx: torch.Tensor,
+                  *, tau: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Grow multi-E master tables to cover ``dt`` appended points.
+
+    ``X`` is the grown (N, L_new) panel; ``dists``/``idx`` the stored
+    uniform-k ``all_knn_multi_e`` tables of its (N, L_old) prefix,
+    (N, E_max, L_old, k_m). Returns the grown (N, E_max, L_new, k_m)
+    tables, bit-identical to ``all_knn_multi_e(X, E_max=E_max, tau=tau,
+    k=k_m)``, at O(Lp·(k_m + dt)) per row and level instead of O(Lp²).
+    """
+    dt = check_append_args(X, dists, idx, tau)
+    N, E_max, L_old, k_m = dists.shape
+    L_new = L_old + dt
+    dev = X.device
+    out_d = torch.full((N, E_max, L_new, k_m), _INF, dtype=torch.float32,
+                       device=dev)
+    out_i = torch.full((N, E_max, L_new, k_m), PAD_IDX, dtype=torch.int32,
+                       device=dev)
+    for e in range(E_max):  # level e ↔ embedding dim E = e+1
+        Lp_old, Lp_new = L_old - e * tau, L_new - e * tau
+        old, old_idx, new = append_candidates(X, dists, idx, tau=tau, e=e)
+        sv, pos = torch.sort(old, dim=-1, stable=True)
+        sv = sv[..., :k_m]
+        ik = normalize_garbage(sv, torch.gather(old_idx, -1, pos[..., :k_m]),
+                               torch.arange(Lp_old, device=dev))
+        out_d[:, e, :Lp_old] = _sorted_roots(sv)
+        out_i[:, e, :Lp_old] = ik.to(torch.int32)
+        d, i = _select(new, k_m)
+        out_d[:, e, Lp_old:Lp_new] = d
+        out_i[:, e, Lp_old:Lp_new] = i
+    return out_d, out_i

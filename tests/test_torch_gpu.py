@@ -246,3 +246,109 @@ def test_xmap_smap_bit_invariant_in_batch_size_on_gpu(E):
             for B in (1, 4, panel.shape[0])]
     for m in outs[1:]:
         np.testing.assert_array_equal(m, outs[0])
+
+
+# ------------------------------------------- append, mxu and fused kernels
+
+
+def _append_case(L_new, E_max, tau, dt, k, kind, N=3):
+    """(grown panel, stored master of its prefix) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import knn_multi_e
+    X = np.random.default_rng(L_new + dt).standard_normal(
+        (N, L_new)).astype(np.float32)
+    if kind == "tie":  # heavy value collisions: the tie order
+        X = np.round(X * 2) / 2
+    X = torch.as_tensor(X, device="cuda")
+    d, i = knn_multi_e.all_knn_multi_e(X[:, :L_new - dt], E_max=E_max,
+                                       tau=tau, k=k)
+    return X, d, i
+
+
+@pytest.mark.parametrize("L_new,E_max,tau,dt,k,kind", [
+    (100, 3, 1, 1, 20, "tie"),     # Δt = 1
+    (211, 6, 1, 64, 20, "tie"),    # Δt > k_m
+    (154, 4, 2, 7, 20, "rand"),
+    (400, 1, 1, 32, 20, "tie"),    # E = 1
+    (300, 20, 1, 16, 22, "rand"),  # E = 20, the session's k_m
+    (30, 4, 2, 2, 25, "rand"),     # garbage slots before and after
+    (24, 6, 1, 3, 20, "tie"),      # garbage, ties
+])
+def test_knn_append_kernel_equals_plain_and_cold(L_new, E_max, tau, dt, k,
+                                                 kind):
+    from repro_torch.kernels import knn_append, knn_multi_e
+    X, d, i = _append_case(L_new, E_max, tau, dt, k, kind)
+    got = knn_append.master_append(X, d, i, tau=tau)
+    want = knn_append.plain(X, d, i, tau=tau)
+    cold = knn_multi_e.all_knn_multi_e(X, E_max=E_max, tau=tau, k=k)
+    for a, b, c in zip(got, want, cold):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_knn_append_kernel_takes_an_unordered_master():
+    """A stored list out of (value, index) order is merged slot by slot:
+    the same selection as the plain version's sort."""
+    from repro_torch.kernels import knn_append
+    X, d, i = _append_case(120, 3, 1, 9, 8, "rand")
+    perm = torch.randperm(8, generator=torch.Generator().manual_seed(0))
+    d, i = d[..., perm.cuda()].clone(), i[..., perm.cuda()].clone()
+    got = knn_append.master_append(X, d, i, tau=1)
+    want = knn_append.plain(X, d, i, tau=1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("E,tau", [(1, 1), (3, 1), (4, 2), (20, 1)])
+def test_pairwise_mxu_kernel_within_tolerance_of_plain(E, tau):
+    from repro_torch.kernels import pairwise_dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _ties_series() * 3.0 + 40.0  # an offset the centering removes
+    got = pairwise_dist.pairwise_distances_mxu(x, E=E, tau=tau)
+    want = pairwise_dist.plain_mxu(x, E=E, tau=tau)
+    scale = pairwise_dist.mxu_scale(x, E=E, tau=tau)
+    assert got.shape == want.shape and bool((got >= 0).all())
+    assert bool(((got.double() - want.double()).abs()
+                 <= pairwise_dist.MXU_RTOL * scale).all())
+
+
+@pytest.mark.parametrize("E,tau,k,max_idx,exclude_self", [
+    (1, 1, 2, None, True), (3, 2, 4, None, True), (20, 1, 21, None, True),
+    (4, 1, 70, 30, True), (3, 1, 9, 120, False),
+])
+def test_knn_fused_kernel_equals_plain_and_two_kernel(E, tau, k, max_idx,
+                                                      exclude_self):
+    from repro_torch.kernels import knn_fused, pairwise_dist, topk
+    x = _ties_series()
+    kw = dict(k=k, max_idx=max_idx, exclude_self=exclude_self)
+    got = knn_fused.all_knn_fused(x, E=E, tau=tau, **kw)
+    want = knn_fused.plain(x, E=E, tau=tau, **kw)
+    two = topk.topk_select(pairwise_dist.pairwise_distances(x, E=E, tau=tau),
+                           **kw)
+    for a, b, c in zip(got, want, two):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_session_append_on_gpu_equals_cold_session_in_one_launch():
+    from repro_torch.edm import EDM
+    from repro_torch.kernels import knn_append
+    panel = _cuda_panel(N=8, L=460).cpu().numpy()
+    warm = EDM(panel[:, :400], E_max=8)
+    warm.optimal_E()
+    launches = []
+    for stop in (401, 417, 460):  # Δt = 1, 16, 43
+        knn_append.master_append.launches = 0
+        warm.append(panel[:, warm.data.L:stop])
+        launches.append(knn_append.master_append.launches)
+    assert launches == [1, 1, 1]  # ≤ 2·E_max: one per append of the panel
+    cold = EDM(panel, E_max=8)
+    E_c, rho_c = cold.optimal_E()
+    for a, b in zip(warm._cache["master"][:2], cold._cache["master"][:2]):
+        assert torch.equal(a, b)
+    E_w, rho_w = warm.optimal_E()
+    np.testing.assert_array_equal(E_w, E_c)
+    np.testing.assert_array_equal(rho_w, rho_c)
+    ref_sess = EDM(panel[:, :400], E_max=8, impl="ref")
+    ref_sess.optimal_E()
+    ref_sess.append(panel[:, 400:])
+    for a, b in zip(warm._cache["master"][:2], ref_sess._cache["master"][:2]):
+        assert torch.equal(a, b)

@@ -35,7 +35,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.knn_multi_e, repro_torch.kernels.knn_batch, "
             "repro_torch.kernels.lookup, repro_torch.kernels.topk, "
             "repro_torch.kernels.pairwise_dist, "
-            "repro_torch.kernels.smap_gram, repro_torch.core, "
+            "repro_torch.kernels.smap_gram, repro_torch.kernels.knn_append, "
+            "repro_torch.kernels.knn_fused, repro_torch.edm.plan, "
+            "repro_torch.edm.dataset, repro_torch.edm.carry, "
+            "repro_torch.core.knn, repro_torch.core, "
             "repro_torch.core.smap, repro_torch.core.smap_engine, "
             "repro_torch.edm.surrogates, repro_torch.data, "
             "repro_torch.telemetry\n"

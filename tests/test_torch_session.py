@@ -160,13 +160,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_methods_raise_naming_roadmap():
-    sess = EDM(_panel(4), E_max=E_MAX, device="cpu")
-    calls = [lambda: sess.append(None),
-             lambda: sess.xmap(run_dir="unused"),
+    panel = _panel(4)
+    sess = EDM(panel[:, :190], E_max=E_MAX, device="cpu")
+    calls = [lambda: sess.xmap(run_dir="unused"),
              lambda: EDMConfig(mesh=object())]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # append is ported: it grows the panel as the reference's does.
+    js = JEDM(panel[:, :190], impl="ref", E_max=E_MAX)
+    assert sess.append(panel[:, 190:]) == js.append(panel[:, 190:]) == []
+    assert sess.data.L == 200
+    np.testing.assert_array_equal(sess.data.panel.numpy(),
+                                  np.asarray(js.data.panel))
 
 
 def test_invalid_series_policies():

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, pairwise_dist, ref
 
 LOOKUP_ATOL = 1e-6
 
@@ -103,12 +103,21 @@ def test_all_knn_matches_reference_and_names_unported_variants():
     _equal(dj, dt)
     _equal(ij, it)
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        ops.all_knn(xt, E=3, variant="mxu")
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        ops.pairwise_distances(xt, E=3, variant="mxu")
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        ops.all_knn(xt, E=3, fused=True)
+    # The variants are ported: fused gives the same bits, mxu the same
+    # distances within its tolerance; an unknown variant is refused.
+    df, if_ = ops.all_knn(xt, E=3, tau=2, max_idx=100, fused=True)
+    _equal(dj, df)
+    _equal(ij, if_)
+    Dm = ops.pairwise_distances(xt, E=3, tau=2, variant="mxu")
+    Dv = ops.pairwise_distances(xt, E=3, tau=2)
+    scale = pairwise_dist.mxu_scale(xt, E=3, tau=2)
+    assert ((Dm - Dv).abs() <= pairwise_dist.MXU_RTOL * scale).all()
+    dm, _ = ops.all_knn(xt, E=3, tau=2, max_idx=100, variant="mxu")
+    assert dm.shape == dt.shape
+    with pytest.raises(ValueError, match="unknown variant"):
+        ops.all_knn(xt, E=3, variant="tpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        ops.pairwise_distances(xt, E=3, variant="tpu")
 
 
 def test_delay_embed_and_caps_checks_match_reference():
