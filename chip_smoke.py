@@ -16,7 +16,18 @@ phase passed; any failure exits nonzero. Phases:
    call where one computes the same function, the kernel's device time
    from the profiler (``device_ms``: the event loop of a small kernel
    measures the host's launch cost), and the least time the card could
-   take;
+   take. The rows of ``knn_multi_e`` and ``smap_gram`` also carry the
+   CUDA-event time of one launch beside the profiler's; ``knn_multi_e`` is
+   held at both designs' edge shapes (buffered selection, and the
+   insertion kernel it keeps for k > 32), the two designs bit-equal to
+   each other at the main path's shape (the insertion kernel, the
+   previous design, timed there too: ``insert_ms``) and timed at one
+   series (each of ``cache=False`` ``optimal_E``'s launches);
+   ``smap_gram``'s bound is that of its three TF32 tensor-core products
+   (the float32 figure beside it), its row carries the θ-sweep shape's
+   times beside the xmap's, an earlier line the device µs of each of its
+   five kernels at both shapes, and it is held bit-equal when a batch is
+   cut into slices of libraries and one library into slices of rows;
 4. main path — ``EDM(panel).optimal_E()`` then ``.xmap()``, and
    ``EDM(panel, E=3).xmap()``, on Fish1_Normo's published shape (154
    series × 1600 steps, E_max = 20), with every kernel's launch count read
@@ -92,8 +103,9 @@ RHO_ATOL = 1e-5
 # A null ρ this close to the real ρ may fall on either side of it under the
 # ρ tolerance, so its p-value may differ by one rank.
 P_MARGIN = 2e-5
-# Published H100 SXM peaks: HBM bytes/s and float32 (non-tensor-core) FLOP/s.
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# Published H100 SXM peaks: HBM bytes/s, float32 (non-tensor-core) FLOP/s
+# and dense TF32 tensor-core FLOP/s.
+HBM_BPS, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 SMAP_THETA = 1.0      # the locality of xmap(method="smap") (EDMConfig.theta)
 # S-Map G and M: float32 sums of ~1600 products, in the kernel's order and
 # in cuBLAS's (TF32 off), each entry within GRAM_RTOL of Σ|terms|.
@@ -143,8 +155,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, ops: float,
+             rate: float = F32_FLOPS) -> tuple[float, str]:
+    """The least ms for ``nbytes`` of memory traffic and ``ops`` operations
+    at ``rate`` per second, and which of the two bounds it."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -223,6 +238,24 @@ def peak_extra(torch, fn):
     return out, torch.cuda.max_memory_allocated() - base
 
 
+def one_launch_ms(torch, fn, reps: int = 5) -> float:
+    """Median ms of single calls, each bracketed by CUDA events on its own:
+    beside the profiler's device time, it shows a launch the profiler may
+    not list."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Device-busy ms per call of ``fn`` (profiler), after one warm-up:
     the card's own time, without the host's launch cost that a CUDA-event
@@ -233,22 +266,35 @@ def device_ms(torch, fn, reps: int = 20) -> float:
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
-               dev_ms):
+               dev_ms, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1], library_ms=library_ms, device_ms=dev_ms)
+                bound_by=bound[1], library_ms=library_ms, device_ms=dev_ms,
+                **extra)
 
 
 def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
     """The three kernels of ``optimal_E`` → ``xmap`` against their plain
     versions: small edge cases, then the main path's shapes."""
     rows_out = []
-    # Small shapes first: per-level k, capped and non-monotone masks, tau 2.
+    # Small shapes first: per-level k, capped and non-monotone masks, tau 2,
+    # E_max 1 and 32, k 32, tied distances (a series rounded to halves),
+    # all on the buffered selection, then k 40 and k 33 on the insertion
+    # kernel; L = 257 is no multiple of 32.
     Xs = X[:3, :257]
-    for kw in (dict(E_max=6, tau=2, k=None, max_idx=None),
-               dict(E_max=5, tau=1, k=9, max_idx=[200, 40, 180, 5, 100])):
-        got = knn_multi_e.all_knn_multi_e(Xs, **kw)
-        want = knn_multi_e.plain(Xs, **kw)
+    tied = torch.round(Xs * 2) / 2
+    for xs_, kw in (
+            (Xs, dict(E_max=6, tau=2, k=None, max_idx=None)),
+            (Xs, dict(E_max=5, tau=1, k=9, max_idx=[200, 40, 180, 5, 100])),
+            (Xs, dict(E_max=1, tau=1, k=None, max_idx=None)),
+            (Xs, dict(E_max=32, tau=1, k=9, max_idx=None)),
+            (Xs, dict(E_max=20, tau=1, k=32, max_idx=None)),
+            (tied, dict(E_max=8, tau=1, k=None, max_idx=None)),
+            (tied, dict(E_max=20, tau=1, k=22, max_idx=None)),
+            (Xs, dict(E_max=4, tau=1, k=40, max_idx=None)),
+            (Xs, dict(E_max=32, tau=1, k=None, max_idx=None))):
+        got = knn_multi_e.all_knn_multi_e(xs_, **kw)
+        want = knn_multi_e.plain(xs_, **kw)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             fail(f"knn_multi_e differs from its plain version at {kw}")
     got = knn_batch.all_knn_batch(Xs, E=4, tau=2, k=300 // 2, max_idx=60)
@@ -270,12 +316,28 @@ def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
     kfn = lambda: knn_multi_e.all_knn_multi_e(X, **mkw)  # noqa: E731
     ms = time_ms(torch, kfn, 10)
     plain_ms = time_ms(torch, lambda: knn_multi_e.plain(X, **mkw), 1, 0)
+    # One series: the shape of each of cache=False optimal_E's launches.
+    n1 = lambda: knn_multi_e.all_knn_multi_e(X[:1], **mkw)  # noqa: E731
+    # The kept insertion kernel (the previous design) at the same shape: the
+    # same bits, timed beside the buffered selection in this run.
+    ins = lambda: knn_multi_e._launch(  # noqa: E731
+        X, "insert", max_idx=None, **mkw)
+    di, ii = ins()
+    if not (torch.equal(di, dk) and torch.equal(ii, ik)):
+        fail("knn_multi_e's two designs differ at the main path's shape")
+    del di, ii
     rows_out.append(kernel_row(
         "knn_multi_e", "src/repro_torch/kernels/csrc/knn_multi_e.cu",
         "src/repro/kernels/knn_multi_e.py:64", err, ms, plain_ms,
         bound_ms(X.numel() * 4 + dk.numel() * 8,
                  3.0 * N_SERIES * E_MAX * LENGTH * LENGTH), None,
-        device_ms(torch, kfn, 3)))
+        device_ms(torch, kfn, 3),
+        design=knn_multi_e.route(LENGTH, E_MAX, 1, K_MASTER),
+        one_launch_ms=one_launch_ms(torch, kfn, 3),
+        insert_ms=time_ms(torch, ins, 2, 0),
+        n1_ms=time_ms(torch, n1, 20), n1_device_ms=device_ms(torch, n1),
+        n1_bound_ms=bound_ms(LENGTH * 4 + dk[0].numel() * 8,
+                             3.0 * E_MAX * LENGTH * LENGTH)[0]))
     del dk, ik
 
     # knn_batch at the fixed-E direct route's kernel (B = N here).
@@ -463,6 +525,42 @@ def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
     kw = dict(E=20, tau=1, Tp=1, thetas=small, exclude_self=True)
     worst = max(worst, held(kw, X[7, :300].contiguous(),
                             X[8:10, :300].contiguous(), "E=20")[0])
+    # Five θ: the narrow product's blocks take 2 θ each, the last one 1.
+    kw = dict(E=2, tau=1, Tp=1, thetas=small + (1.0,), exclude_self=True)
+    worst = max(worst, held(kw, xs, xs[None], "five thetas")[0])
+    # A batch the scratch bound cuts into slices of 2 libraries: each
+    # library's G and M the same bits as its own launch.
+    kw = dict(E=3, tau=1, Tp=0, thetas=(SMAP_THETA,))
+    Xb = X[:5, :300].contiguous()
+    bound = smap_gram.SCRATCH_BYTES
+    smap_gram.SCRATCH_BYTES = 2 * 4 * smap_gram.scratch_floats(298, 36, 1)
+    try:
+        G, M = smap_gram.smap_gram(Xb, Xb, **kw)
+    finally:
+        smap_gram.SCRATCH_BYTES = bound
+    for b in range(5):
+        g, m = smap_gram.smap_gram(Xb[b], Xb, **kw)
+        if not (torch.equal(G[b], g) and torch.equal(M[b], m)):
+            fail("smap_gram in scratch slices differs from a B = 1 launch")
+    # One library over the bound: its query rows in slices of 128 (wide
+    # product, 154 targets) and of 256 (the narrow one, 5 θ), each the same
+    # bits as an unsliced launch.
+    for Y, kw in ((X[:, :700], dict(E=3, tau=1, Tp=0, thetas=(SMAP_THETA,))),
+                  (X[1:2, :700], dict(E=2, tau=1, Tp=1,
+                                      thetas=small + (1.0,)))):
+        x = X[0, :700].contiguous()
+        G0, M0 = smap_gram.smap_gram(x, Y, **kw)
+        rows, T = G0.shape[0], len(kw["thetas"])
+        C = G0.shape[-1] ** 2 + M0.shape[-2] * G0.shape[-1]
+        fixed = smap_gram.scratch_floats(rows, C, T, 0)
+        step = smap_gram.scratch_floats(rows, C, T, smap_gram.ROW_STEP) - fixed
+        smap_gram.SCRATCH_BYTES = 4 * (fixed + (T > 1) * 2 * step)
+        try:
+            G, M = smap_gram.smap_gram(x, Y, **kw)
+        finally:
+            smap_gram.SCRATCH_BYTES = bound
+        if not (torch.equal(G, G0) and torch.equal(M, M0)):
+            fail("smap_gram in row slices differs from an unsliced launch")
 
     def shape_timing(x, Y, kw):
         err, G, M = held(kw, x, Y, f"the path shape {kw}, N={Y.shape[0]}")
@@ -479,12 +577,22 @@ def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
         Ws = [torch.exp(-t * ratio).masked_fill(eye, 0.0)
               for t in kw["thetas"]]
         lfn = lambda: [(W @ AA, W @ yA) for W in Ws]  # noqa: E731
+        flops = 2.0 * rows * rows * T * C
+        nbytes = 4 * (x.numel() + Y.numel() + G.numel() + M.numel())
+        # Device time per call, and the split over the kernel's five
+        # kernels (mean µs a launch), from one profile of 10 calls.
+        kfn()
+        prof = device_profile(torch, lambda: [kfn() for _ in range(10)])
         return dict(
             max_rel_err=err, ms=time_ms(torch, kfn, 20),
-            device_ms=device_ms(torch, kfn, 10),
+            device_ms=prof["device_busy_s"] * 1e3 / 10,
+            kernels_us={k: v["mean_us"] for k, v in prof["kernels"].items()},
+            one_launch_ms=one_launch_ms(torch, kfn),
             plain_ms=time_ms(torch, pfn, 3), library_ms=time_ms(torch, lfn, 20),
-            bound=bound_ms(4 * (x.numel() + Y.numel() + G.numel()
-                                + M.numel()), 2.0 * rows * rows * T * C),
+            # The product runs as three TF32 products (the 3×TF32 split) on
+            # the tensor cores; the float32 figure is kept beside it.
+            bound=bound_ms(nbytes, 3.0 * flops, TF32_FLOPS),
+            bound_f32_ms=bound_ms(nbytes, flops)[0],
             shape={"rows": rows, "T": T, "E": E1 - 1, "N": Y.shape[0]})
 
     x = X[0]
@@ -497,7 +605,13 @@ def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
                      "src/repro/kernels/smap_gram.py:49",
                      max(worst, sweep["max_rel_err"], lib["max_rel_err"]),
                      lib["ms"], lib["plain_ms"], lib["bound"],
-                     lib["library_ms"], lib["device_ms"])
+                     lib["library_ms"], lib["device_ms"],
+                     one_launch_ms=lib["one_launch_ms"],
+                     bound_f32_ms=lib["bound_f32_ms"],
+                     sweep_ms=sweep["ms"], sweep_device_ms=sweep["device_ms"],
+                     sweep_library_ms=sweep["library_ms"],
+                     sweep_bound_ms=sweep["bound"][0],
+                     sweep_bound_f32_ms=sweep["bound_f32_ms"])
     return row, {"small_shapes_max_rel_err": worst, "sweep_shape": sweep,
                  "xmap_library_shape": lib}
 
@@ -947,6 +1061,9 @@ def main() -> None:
     E_opt, rho = sess.optimal_E()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    opt_launches = {n: c for n, c in counts().items() if c}
+    if opt_launches.get("knn_multi_e") != 1:
+        fail(f"optimal_E launched {opt_launches}, not one knn_multi_e")
     xm = sess.xmap()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -977,7 +1094,7 @@ def main() -> None:
         "xmap_fixed_E": spread(t_xm3),
         "pairs_per_s_master": pairs / statistics.median(t_xm),
         "pairs_per_s_fixed_E": pairs / statistics.median(t_xm3),
-        "peak_bytes": peak,
+        "peak_bytes": peak, "launches_optimal_E": opt_launches,
         "E_opt_hist": {int(e): int((E_opt == e).sum())
                        for e in np.unique(E_opt)},
         "launches": {n: c for n, c in main_launches.items() if c}}}))

@@ -104,6 +104,9 @@ _SIGNATURES = {
     "knn_multi_e_launch": ("knn_multi_e",
                            [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                             _P, _P, _P]),
+    "knn_multi_e_select_launch": ("knn_multi_e",
+                                  [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                   _P, _P, _P]),
     "knn_batch_launch": ("knn_batch",
                          [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "lookup_rho_launch": ("lookup_rho",
@@ -116,7 +119,7 @@ _SIGNATURES = {
                           [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
     "smap_gram_launch": ("smap_gram",
                          [_P, _I, _I, _P, _LL, _I, _P, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P]),
+                          _P, _I, _I, _P, _P, _P]),
     "knn_append_launch": ("knn_append",
                           [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
                            _P, _P]),

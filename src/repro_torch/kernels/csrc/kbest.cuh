@@ -1,5 +1,9 @@
 // Warp-cooperative (value, index) k-best lists and the strict distance
-// chain, shared by knn_multi_e.cu and knn_batch.cu.
+// chain. Included by seven kernels: knn_multi_e.cu (its insertion kernel
+// for the shapes the buffered selection does not take), knn_batch.cu,
+// knn_append.cu, knn_fused.cu and topk.cu (the lists and warp_offer),
+// pairwise_dist.cu and smap_gram.cu (add_sq, the strict chain); and by
+// warp_select.cuh (before, kEmpty, kFull).
 //
 // One warp owns one row. Its list is k slots in shared memory, kept
 // sorted by (value ascending, index ascending) — the tie order of

@@ -3,10 +3,13 @@
 Port of ``repro/kernels/smap_gram.py`` (Pallas ``_kernel``): for every
 (query row, θ, target) the (E+1, E+1) Gram matrix AᵀWA and the moments
 AᵀWy that the batched S-Map engine solves (``core/smap_engine.py``).
-Design and bound: ``csrc/smap_gram.cu``. It takes an optional leading
+Design and bound: ``csrc/smap_gram.cu`` (a 3×TF32 tensor-core product
+of weights formed once per (library, θ)). It takes an optional leading
 library axis: B libraries against shared targets (``smap_group``) or
-each against its own (the θ-sweep), one launch for all, each library's
-G and M bit-identical to a B = 1 launch.
+each against its own (the θ-sweep), one wrapper call for all — in slices
+of libraries, or of one library's query rows, when their scratch would
+pass ``SCRATCH_BYTES`` — each library's G and M bit-identical to a B = 1
+call and to an unsliced one.
 
 The plain version is ``plain`` (``kernels.ref.smap_gram``, library by
 library). The two sum in different orders, so they are held to a bound
@@ -22,11 +25,42 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-#: Hopper's per-block dynamic shared memory ceiling, and the kernel's own
-#: tiles (two 32 × 64 float32 tiles) beside the series it holds whole.
-SMEM_MAX = 232_448
-TILE_BYTES = 2 * 32 * 64 * 4
+#: Scratch the wrapper may hold for one call: per library R's transpose,
+#: and per query row its distances, d̄ and, for the wide product, each θ's
+#: weights (``scratch_floats``). A batch above it goes through the one
+#: launch in slices of libraries; a library above it, in slices of
+#: ``ROW_STEP``-multiple query rows (at least one step, so a library whose R
+#: alone passes the bound still runs).
+SCRATCH_BYTES = 1 << 30
+ROW_STEP = 128  # the wide product's rows per block
 MAX_THETAS = 64
+
+
+def scratch_floats(rows: int, C: int, T: int, nj: int | None = None) -> int:
+    """Scratch 4-byte words one library takes (``csrc/smap_gram.cu``) with
+    its query rows in slices of ``nj`` (default: all ``rows``): R
+    (C · ldr, twice for the wide product's TF32 pairs), the slice's
+    distances (nj · ldr) and d̄ (nj, padded to 4), and for the wide product
+    (C > 32 or T = 1) each θ's weights as TF32 pairs (2T · nj · ldr);
+    ldr = rows rounded up to a multiple of 4."""
+    nj = rows if nj is None else nj
+    ldr = -(-rows // 4) * 4
+    wide = C > 32 or T == 1
+    return ((2 if wide else 1) * C + nj * (1 + (2 * T if wide else 0))) \
+        * ldr + -(-nj // 4) * 4
+
+
+def slices(rows: int, C: int, T: int, B: int) -> tuple[int, int]:
+    """(libraries, query rows) per slice that keep the scratch within
+    ``SCRATCH_BYTES``: whole libraries while one fits, else one library in
+    row slices of a multiple of ``ROW_STEP``."""
+    budget = SCRATCH_BYTES // 4
+    whole = scratch_floats(rows, C, T)
+    if whole <= budget:
+        return max(1, min(B, budget // whole)), rows
+    fixed = scratch_floats(rows, C, T, 0)
+    step = scratch_floats(rows, C, T, ROW_STEP) - fixed
+    return 1, min(rows, max(1, (budget - fixed) // step) * ROW_STEP)
 
 
 def _shapes(x: torch.Tensor, Y: torch.Tensor):
@@ -91,26 +125,27 @@ def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
     rows = _ref.num_embedded(L, E, tau) - Tp
     if rows <= 0:
         raise ValueError(f"no library rows: L={L}, E={E}, tau={tau}, Tp={Tp}")
-    if TILE_BYTES + 4 * L > SMEM_MAX:
-        raise ValueError(f"L={L} does not fit one block's shared memory "
-                         f"beside its tiles ({SMEM_MAX} B)")
     E1 = E + 1
     Xc = X.float().contiguous()
     Yc = Yb.float().contiguous()
-    dbar = torch.empty((B, rows), dtype=torch.float32, device=X.device)
     G = torch.empty((B, rows, T, E1, E1), dtype=torch.float32,
                     device=X.device)
     M = torch.empty((B, rows, T, N, E1), dtype=torch.float32,
                     device=X.device)
     if B == 0:  # an empty library batch
         return G, M
+    C = E1 * E1 + N * E1
+    slice_libs, row_slice = slices(rows, C, T, B)
+    scratch = torch.empty(slice_libs * scratch_floats(rows, C, T, row_slice),
+                          dtype=torch.float32, device=X.device)
     th = (ctypes.c_float * T)(*thetas)
     fn = _build.entry("smap_gram_launch")
     with torch.cuda.device(X.device):
         err = fn(Xc.data_ptr(), B, L, Yc.data_ptr(),
                  N * L if Yc.ndim == 3 else 0, N, th, T, E, tau, Tp,
-                 int(exclude_self), dbar.data_ptr(), G.data_ptr(),
-                 M.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                 int(exclude_self), scratch.data_ptr(), slice_libs,
+                 row_slice, G.data_ptr(), M.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
     _build.check(err, "smap_gram")
     smap_gram.launches += 1
     return (G, M) if batched else (G[0], M[0])

@@ -35,6 +35,50 @@ def test_knn_multi_e_kernel_equals_plain(kw):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("L,kw,route", [
+    (400, dict(E_max=1, tau=1, k=None, max_idx=None), "select"),
+    (333, dict(E_max=8, tau=2, k=9, max_idx=None), "select"),
+    (400, dict(E_max=20, tau=1, k=32, max_idx=None), "select"),
+    (300, dict(E_max=32, tau=1, k=9, max_idx=None), "select"),
+    (350, dict(E_max=6, tau=1, k=9, max_idx=[300, 40, 280, 5, 120, 60]),
+     "select"),                                   # capped, non-monotone
+    (400, dict(E_max=4, tau=1, k=40, max_idx=None), "insert"),   # k > 32
+    (300, dict(E_max=32, tau=1, k=None, max_idx=None), "insert"),  # k 33
+], ids=["E1", "E8-tau2-k9", "E20-k32", "E32-k9", "capped", "k40", "E32-k33"])
+def test_knn_multi_e_both_designs_equal_plain(L, kw, route):
+    from repro_torch.kernels import knn_multi_e, ref
+    X = _cuda_panel(N=4, L=L)
+    k_max = max(ref.multi_e_ks(kw["E_max"], kw["k"]))
+    assert knn_multi_e.route(L, kw["E_max"], kw["tau"], k_max) == route
+    got = knn_multi_e.all_knn_multi_e(X, **kw)
+    want = knn_multi_e.plain(X, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_knn_multi_e_designs_agree_at_a_selection_shape():
+    from repro_torch.kernels import knn_multi_e
+    X = _cuda_panel(N=5, L=333)
+    kw = dict(E_max=12, tau=1, k=22, max_idx=[300, 40] * 6)
+    assert knn_multi_e.route(333, 12, 1, 22) == "select"
+    sel = knn_multi_e.all_knn_multi_e(X, **kw)
+    ins = knn_multi_e._launch(X, "insert", exclude_self=True, **kw)
+    assert torch.equal(sel[0], ins[0]) and torch.equal(sel[1], ins[1])
+    # A shape neither kernel takes: k's lists pass a block's shared memory.
+    with pytest.raises(ValueError, match="shared memory"):
+        knn_multi_e.all_knn_multi_e(_cuda_panel(N=2, L=4000), E_max=1,
+                                    k=4000)
+
+
+@pytest.mark.parametrize("k,E_max", [(None, 8), (9, 8), (32, 20), (None, 32)])
+def test_knn_multi_e_equals_plain_on_tied_distances(k, E_max):
+    from repro_torch.kernels import knn_multi_e
+    x = _ties_series()
+    X = torch.stack([x, x.flip(0), torch.round(x * 2) / 2])
+    got = knn_multi_e.all_knn_multi_e(X, E_max=E_max, k=k)
+    want = knn_multi_e.plain(X, E_max=E_max, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("kw", [
     dict(E=3, tau=1, k=4, max_idx=None),
     dict(E=2, tau=3, k=70, max_idx=30),
@@ -200,6 +244,84 @@ def test_smap_gram_kernel_constant_series_and_batch_axis():
         _gram_close(G[b], gp, ga)
         _gram_close(M[b], mp, ma)
     assert torch.isfinite(G[2]).all() and torch.isfinite(M[2]).all()
+
+
+@pytest.mark.parametrize("E,N,T,L,const", [
+    (1, 1, 8, 301, False),    # narrow (C = 6), rows 299
+    (1, 3, 1, 300, False),    # wide, one θ
+    (3, 1, 8, 300, False),    # the θ-sweep's shape, rows 297
+    (3, 1, 8, 300, True),     # ... on a constant library
+    (3, 154, 1, 300, False),  # the S-Map xmap's shape
+    (20, 1, 8, 300, False),   # E + 1 = 21: C = 462, wide with 8 θ
+    (20, 3, 1, 250, False),
+])
+def test_smap_gram_tensor_core_kernel_within_gram_rtol(E, N, T, L, const):
+    from repro_torch.kernels import ref, smap_gram
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = _cuda_panel(N=N + 1, L=L, seed=E)
+    x, Y = X[0].clone(), X[1:]
+    if const:
+        x[:] = 0.7
+    thetas = (0.0, 0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0) if T == 8 else (1.0,)
+    kw = dict(E=E, tau=1, Tp=1, thetas=thetas)
+    G, M = smap_gram.smap_gram(x, Y, **kw)
+    Gp, Mp = smap_gram.plain(x, Y, **kw)
+    Ga, Ma = ref.smap_gram_abs(x, Y, **kw)
+    assert G.shape == Gp.shape and M.shape == Mp.shape
+    _gram_close(G, Gp, Ga)
+    _gram_close(M, Mp, Ma)
+
+
+def test_smap_gram_scratch_slices_bit_equal_to_single_launches(monkeypatch):
+    from repro_torch.kernels import smap_gram
+    X = _cuda_panel(N=5, L=300)
+    for Y, kw in ((X, dict(E=3, tau=1, Tp=0, thetas=(1.0,))),
+                  (X[:, None, :], dict(E=2, tau=1, Tp=1,
+                                       thetas=(0.0, 1.0, 4.0, 8.0, 2.0)))):
+        rows = 300 - (kw["E"] - 1) - kw["Tp"]
+        C = (kw["E"] + 1) ** 2 + Y.shape[-2] * (kw["E"] + 1)
+        monkeypatch.setattr(smap_gram, "SCRATCH_BYTES",
+                            2 * 4 * smap_gram.scratch_floats(
+                                rows, C, len(kw["thetas"])))
+        smap_gram.smap_gram.launches = 0
+        G, M = smap_gram.smap_gram(X, Y, **kw)  # slices of 2, 2 and 1
+        assert smap_gram.smap_gram.launches == 1
+        monkeypatch.undo()
+        for b in range(5):
+            g, m = smap_gram.smap_gram(X[b], Y if Y.ndim == 2 else Y[b], **kw)
+            assert torch.equal(G[b], g) and torch.equal(M[b], m)
+
+
+@pytest.mark.parametrize("E,N,thetas,steps", [
+    (3, 3, (1.0,), 2),                        # wide, one θ
+    (20, 1, (0.0, 0.5, 2.0, 8.0, 1.0), 2),    # wide, five θ (C = 462)
+    (2, 1, (0.0, 1.0, 4.0, 8.0, 2.0), 2),     # narrow (C = 12)
+    (3, 154, (1.0,), 0),                      # no row fits beside R
+])
+def test_smap_gram_row_slices_bit_equal_to_an_unsliced_launch(
+        monkeypatch, E, N, thetas, steps):
+    from repro_torch.kernels import ref, smap_gram
+    X = _cuda_panel(N=N + 1, L=700, seed=E)
+    x, Y = X[0], X[1:]
+    kw = dict(E=E, tau=1, Tp=1, thetas=thetas)
+    G0, M0 = smap_gram.smap_gram(x, Y, **kw)
+    rows, T = G0.shape[0], len(thetas)
+    C = (E + 1) ** 2 + N * (E + 1)
+    fixed = smap_gram.scratch_floats(rows, C, T, 0)
+    step = smap_gram.scratch_floats(rows, C, T, smap_gram.ROW_STEP) - fixed
+    # One library over the bound: its query rows go in slices of
+    # max(1, steps) · ROW_STEP (697 rows: 256, 256, 185 or 6 of 128).
+    monkeypatch.setattr(smap_gram, "SCRATCH_BYTES", 4 * (fixed + steps * step))
+    nb, nj = smap_gram.slices(rows, C, T, 1)
+    assert (nb, nj) == (1, max(1, steps) * smap_gram.ROW_STEP)
+    smap_gram.smap_gram.launches = 0
+    G, M = smap_gram.smap_gram(x, Y, **kw)
+    assert smap_gram.smap_gram.launches == 1
+    assert torch.equal(G, G0) and torch.equal(M, M0)
+    Gp, Mp = smap_gram.plain(x, Y, **kw)
+    Ga, Ma = ref.smap_gram_abs(x, Y, **kw)
+    _gram_close(G, Gp, Ga)
+    _gram_close(M, Mp, Ma)
 
 
 def test_smap_launches_per_call_and_plain_agreement():

@@ -124,6 +124,27 @@ def test_ops_smap_gram_library_axis_and_counter():
         assert torch.equal(Gs[b], g) and torch.equal(Ms[b], m)
 
 
+@pytest.mark.parametrize("rows,E,N,T,B", [
+    (1597, 3, 154, 1, 154),  # the fixed-E S-Map xmap: libraries in slices
+    (297, 3, 1, 8, 154),     # a θ-sweep batch that fits whole
+    (9995, 5, 1, 8, 1),      # θ-sweep at L = 10,000, E = 5: rows in slices
+    (29997, 3, 154, 1, 2),   # an xmap library at L = 30,000
+    (53980, 20, 1, 8, 3),    # E + 1 = 21 at L ≈ 54,000
+])
+def test_smap_gram_scratch_plan_stays_within_its_bound(rows, E, N, T, B):
+    from repro_torch.kernels import smap_gram
+    C = (E + 1) ** 2 + N * (E + 1)
+    nb, nj = smap_gram.slices(rows, C, T, B)
+    assert 1 <= nb <= B and 1 <= nj <= rows
+    assert nb == 1 or nj == rows
+    assert nj == rows or nj % smap_gram.ROW_STEP == 0
+    need = 4 * nb * smap_gram.scratch_floats(rows, C, T, nj)
+    assert need <= smap_gram.SCRATCH_BYTES
+    if nj < rows:  # one more step of rows would pass the bound
+        assert 4 * smap_gram.scratch_floats(
+            rows, C, T, nj + smap_gram.ROW_STEP) > smap_gram.SCRATCH_BYTES
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 1597])
 def test_sum_tree_and_pearson_rows_tree_are_batch_invariant(n):
     rng = np.random.default_rng(n)
