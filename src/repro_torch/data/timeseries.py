@@ -139,3 +139,54 @@ def forced_network_panel(
         )
         x = np.clip(x_new, 1e-6, 1.0 - 1e-6)
     return out[:, discard:], adj
+
+
+def _sq32(a, b) -> np.float32:
+    """fl(fl(a − b)²) in float32, as the strict distance chain's first term."""
+    d = np.float32(a) - np.float32(b)
+    return np.float32(d * d)
+
+
+def _root32(v) -> np.float32:
+    """The correctly rounded float32 square root (through float64)."""
+    return np.float32(np.sqrt(np.float64(v)))
+
+
+def root_collision_panel(n_series: int, L_old: int, dt: int, *,
+                         seed: int = 0) -> np.ndarray:
+    """(N, L_old + dt) float32 panel whose new column ties a stored
+    neighbour's root but not its value.
+
+    At E = 2 (τ = 1) in series s, old row i's nearest column j and the
+    column c = L_old − 1, new at that level, lie at squared distances one
+    float32 ulp apart that share one correctly rounded root: the new
+    column's is the smaller in even series, the larger in odd ones. (At
+    E = 1 no two squared distances share a root: sqrt_rn(fl(d²)) = |d|.)
+    Every other value is far away (uniform in [100, 200)). A kNN master
+    kept as roots cannot order the two without their values: the append
+    kernel's case for recomputing on equal roots.
+    """
+    if dt < 1 or L_old < 8:
+        raise ValueError(f"need L_old >= 8 and dt >= 1, got {L_old}, {dt}")
+    rng = np.random.default_rng(seed)
+    out = rng.uniform(100.0, 200.0, size=(n_series, L_old + dt))
+    out = out.astype(np.float32)
+    c = L_old - 1
+    for s in range(n_series):
+        for _ in range(1000):
+            xj = np.float32(rng.uniform(0.25, 0.75))
+            v0 = _sq32(-xj, xj)  # the first lag's term, both columns
+            up = np.nextafter(v0, np.float32(np.inf))
+            b = np.float32(np.sqrt(np.float64(up - v0)))  # second lag
+            if (np.float32(v0 + _sq32(b, 0.0)) == up
+                    and _root32(up) == _root32(v0)):
+                break
+        else:
+            raise RuntimeError("no root collision found")
+        # The new column takes the larger value in odd series.
+        bj, bc = (b, np.float32(0.0)) if s % 2 == 0 else (np.float32(0.0), b)
+        i, j = 0, 0
+        while abs(i - j) < 2:  # rows i, i + 1, j, j + 1 all distinct
+            i, j = rng.choice(c - 2, size=2)
+        out[s, [i, i + 1, j, j + 1, c, c + 1]] = (-xj, 0.0, xj, bj, xj, bc)
+    return out

@@ -93,11 +93,29 @@ def screen_panel(panel: np.ndarray, *, prior: dict | None = None
     return _records(m["cnt"], m["lo"], m["hi"], delta_cnt=stats["cnt"])
 
 
+def resolve_device(device: str | torch.device, owner: str) -> torch.device:
+    """``device`` as a torch device, a bare "cuda" pinned to the current
+    card; raises when it asks for CUDA and none exists (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner}(device={str(device)!r}) but CUDA is not available; "
+                f"the port does not fall back to the CPU — pass "
+                f"device='cpu' to run the plain versions there")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class Dataset:
-    """An (N, L) panel of equal-length float32 series on ``device``."""
+    """An (N, L) panel of equal-length float32 series on ``device``: the
+    card by default, as ``EDMConfig``; ``device="cpu"`` runs the plain
+    versions."""
 
     def __init__(self, panel, *, names=None, on_invalid: str = "raise",
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
+        device = resolve_device(device, "Dataset")
         if on_invalid not in INVALID_POLICIES:
             raise ValueError(
                 f"unknown on_invalid policy {on_invalid!r}; expected one "

@@ -45,7 +45,7 @@ from repro_torch.core.embedding import num_embedded
 from repro_torch.core.simplex import optimal_E_batch, simplex_skill
 from repro_torch.core.smap_engine import smap_group, smap_theta_sweep
 from repro_torch.edm.config import EDMConfig
-from repro_torch.edm.dataset import Dataset
+from repro_torch.edm.dataset import Dataset, resolve_device
 from repro_torch.edm.plan import (
     Plan,
     ccm_convergence_from_master,
@@ -77,16 +77,7 @@ def _e_groups(E_opt, N: int):
 
 def session_device(config: EDMConfig) -> torch.device:
     """The session's device; raises when it asks for CUDA and none exists."""
-    dev = torch.device(config.device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"EDMConfig(device={config.device!r}) but CUDA is not "
-                f"available; the session does not fall back to the CPU — "
-                f"pass device='cpu' to run the plain versions there")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    return resolve_device(config.device, "EDMConfig")
 
 
 @dataclasses.dataclass

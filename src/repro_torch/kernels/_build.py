@@ -109,6 +109,9 @@ _SIGNATURES = {
                                    _P, _P, _P]),
     "knn_batch_launch": ("knn_batch",
                          [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "knn_batch_thread_launch": ("knn_batch",
+                                [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                 _P]),
     "lookup_rho_launch": ("lookup_rho",
                           [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P, _P]),
@@ -123,6 +126,9 @@ _SIGNATURES = {
     "knn_append_launch": ("knn_append",
                           [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
                            _P, _P]),
+    "knn_append_stream_launch": ("knn_append",
+                                 [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                  _P, _P, _P]),
     "pairwise_mxu_launch": ("pairwise_mxu", [_P, _I, _I, _I, _P, _P]),
     "knn_fused_launch": ("knn_fused",
                          [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),

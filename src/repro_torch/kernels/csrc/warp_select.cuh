@@ -1,5 +1,6 @@
 // Warp-wide bitonic sorting, merging and buffered k-selection of
-// (value, index) keys for k ≤ 32: used by knn_multi_e.cu.
+// (value, index) keys for k ≤ 32: used by knn_multi_e.cu and by the walk
+// over new rows in knn_append.cu.
 //
 // Keys are ordered by (value ascending, index ascending), as kbest::before,
 // so a selection that keeps the k first keys of everything offered gives

@@ -29,7 +29,9 @@ def all_knn_fused(x: torch.Tensor, *, E: int, tau: int = 1,
                   max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(L,) CUDA series → (dists, idx), both (Lp, k), ascending.
 
-    ``max_idx`` is a host int (inclusive column cap) or None.
+    ``max_idx`` is a host int (inclusive column cap) or None. Raises when
+    L + 32·k passes 58,112 floats: the series and 16 warps' lists must fit
+    one block's shared memory.
     """
     if x.device.type != "cuda":
         raise ValueError(f"knn_fused kernel needs a CUDA tensor, got "

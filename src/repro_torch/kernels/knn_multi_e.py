@@ -61,7 +61,9 @@ def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
 
     ``[s, E-1, :Lp_E, :k_E]`` is series s's table at dimension E, padded
     with inf / -1 outside that block (``ref.all_knn_multi_e``). ``route``
-    picks the kernel; both give the same bits.
+    picks the kernel; both give the same bits. Raises for E_max above
+    ``MAX_LEVELS`` (64), and on the insertion kernel for k_max whose lists
+    of 8 warps pass a block's shared memory (k_max > 3,632).
     """
     out = _launch(X, None, E_max=E_max, tau=tau, k=k,
                   exclude_self=exclude_self, max_idx=max_idx)

@@ -107,6 +107,7 @@ def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
     x (L,) with Y (N, L) gives G (rows, T, E+1, E+1), M (rows, T, N, E+1);
     x (B, L) with Y (N, L) (shared targets) or (B, N, L) (each library its
     own) gives both with a leading B. rows = L − (E−1)τ − Tp, Tp ≥ 0.
+    Raises for more than ``MAX_THETAS`` (64) θ.
     """
     if x.device.type != "cuda":
         raise ValueError(f"smap_gram kernel needs a CUDA tensor, got "

@@ -44,7 +44,9 @@ def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
                 max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(Lp, Lp) CUDA matrix → (dists, idx), both (Lp, k), ascending.
 
-    ``max_idx`` is a host int (inclusive column cap) or None.
+    ``max_idx`` is a host int (inclusive column cap) or None. Raises for
+    k > 29,056, where one warp's list passes a block's shared memory (as
+    ``topk_select_sizes``).
     """
     Lp, warps = _check(D, k)
     mx = Lp - 1 if max_idx is None else min(int(max_idx), Lp - 1)

@@ -203,7 +203,7 @@ def test_dataset_append_matches_reference(rng, policy):
     bad = rng.normal(size=(5, 3)).astype(np.float32)
     bad[2, 0] = np.nan
     bad[4, 2] = -np.inf
-    t = Dataset(panel, names=names, on_invalid=policy)
+    t = Dataset(panel, names=names, on_invalid=policy, device="cpu")
     j = JDataset(panel, names=names, on_invalid=policy)
     assert t.append(clean) == j.append(clean) == []
     _assert_dataset_equal(t, j)
@@ -229,7 +229,7 @@ def test_dataset_append_matches_reference(rng, policy):
 def test_dataset_append_constant_series_can_become_valid(rng):
     panel = rng.normal(size=(2, 50)).astype(np.float32)
     panel[1, :] = 7.0
-    ds = Dataset(panel, on_invalid="mask")
+    ds = Dataset(panel, on_invalid="mask", device="cpu")
     assert not ds.is_valid(1)
     assert ds.append(rng.normal(size=(2, 6)).astype(np.float32)) == []
     assert ds.is_valid(1)  # variation arrived: now usable
@@ -289,8 +289,8 @@ def test_session_append_drop_compacts_master_rows(rng):
     full = rng.normal(size=(5, 110)).astype(np.float32)
     bad = full[:, 100:].copy()
     bad[2, 3] = np.nan
-    sess = EDM(Dataset(full[:, :100], on_invalid="drop"), E_max=3,
-               device="cpu")
+    sess = EDM(Dataset(full[:, :100], on_invalid="drop", device="cpu"),
+               E_max=3, device="cpu")
     jsess = JEDM(JDataset(full[:, :100], on_invalid="drop"), E_max=3,
                  impl="ref")
     sess._master(3)

@@ -396,28 +396,36 @@ def _append_case(L_new, E_max, tau, dt, k, kind, N=3):
     (300, 20, 1, 16, 22, "rand"),  # E = 20, the session's k_m
     (30, 4, 2, 2, 25, "rand"),     # garbage slots before and after
     (24, 6, 1, 3, 20, "tie"),      # garbage, ties
+    (300, 32, 1, 40, 32, "tie"),   # the stream kernel's widest
+    (300, 3, 1, 5, 33, "tie"),     # k 33: the insertion kernel
 ])
 def test_knn_append_kernel_equals_plain_and_cold(L_new, E_max, tau, dt, k,
                                                  kind):
+    """Both designs (the stream kernel for k ≤ 32, the insertion kernel)
+    bit-equal to the plain version and to a cold build."""
     from repro_torch.kernels import knn_append, knn_multi_e
     X, d, i = _append_case(L_new, E_max, tau, dt, k, kind)
+    assert knn_append.route(L_new, E_max, tau, k, dt) == (
+        "stream" if k <= 32 else "insert")
     got = knn_append.master_append(X, d, i, tau=tau)
     want = knn_append.plain(X, d, i, tau=tau)
     cold = knn_multi_e.all_knn_multi_e(X, E_max=E_max, tau=tau, k=k)
-    for a, b, c in zip(got, want, cold):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    ins = knn_append._launch(X, d, i, "insert", tau=tau)
+    for a, b, c, e in zip(got, want, cold, ins):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
 
 
 def test_knn_append_kernel_takes_an_unordered_master():
-    """A stored list out of (value, index) order is merged slot by slot:
-    the same selection as the plain version's sort."""
+    """A stored list out of (value, index) order is sorted first: the same
+    selection as the plain version's sort, on both designs."""
     from repro_torch.kernels import knn_append
     X, d, i = _append_case(120, 3, 1, 9, 8, "rand")
     perm = torch.randperm(8, generator=torch.Generator().manual_seed(0))
     d, i = d[..., perm.cuda()].clone(), i[..., perm.cuda()].clone()
-    got = knn_append.master_append(X, d, i, tau=1)
     want = knn_append.plain(X, d, i, tau=1)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for kind in ("stream", "insert"):
+        got = knn_append._launch(X, d, i, kind, tau=1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("E,tau", [(1, 1), (3, 1), (4, 2), (20, 1)])
@@ -474,3 +482,150 @@ def test_session_append_on_gpu_equals_cold_session_in_one_launch():
     ref_sess.append(panel[:, 400:])
     for a, b in zip(warm._cache["master"][:2], ref_sess._cache["master"][:2]):
         assert torch.equal(a, b)
+
+
+# ------------------------------ knn_batch and knn_append: both designs each
+
+
+def _tied_panel(N, L, seed=3):
+    """Values rounded to 1/8: exact distance ties everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    X = np.random.default_rng(seed).standard_normal((N, L)).astype(np.float32)
+    return torch.as_tensor(np.round(X * 8) / 8, device="cuda")
+
+
+def _batch_both_routes_equal_plain(X, kind, **kw):
+    from repro_torch.kernels import knn_batch
+    Lp = X.shape[1] - (kw["E"] - 1) * kw.get("tau", 1)
+    k = kw.get("k") or kw["E"] + 1
+    assert knn_batch.route(Lp, kw["E"], kw.get("tau", 1), k) == kind
+    got = knn_batch.all_knn_batch(X, **kw)
+    want = knn_batch.plain(X, **kw)
+    ins = knn_batch._launch(X, "insert", **kw)
+    for a, b, c in zip(got, want, ins):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("k", [4, 5, 8, 9, 16, 17, 32, 33])
+def test_knn_batch_routes_equal_plain_at_bucket_edges(k):
+    _batch_both_routes_equal_plain(_tied_panel(3, 333), "thread" if k <= 32
+                                   else "insert", E=3, tau=1, k=k)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(E=1, tau=1, k=2),
+    dict(E=4, tau=2, k=9),
+    dict(E=3, tau=1, k=6, max_idx=100),
+    dict(E=3, tau=1, k=6, max_idx=2),  # fewer valid columns than k
+    dict(E=3, tau=1, k=6, exclude_self=False),
+    dict(E=20, tau=1, k=21),
+    dict(E=32, tau=1, k=32),
+], ids=["E1", "tau2", "capped", "cap-below-k", "self", "E20", "E32-k32"])
+def test_knn_batch_thread_kernel_edge_cases(kw):
+    _batch_both_routes_equal_plain(_tied_panel(4, 257), "thread", **kw)
+
+
+def test_knn_batch_long_series_in_column_chunks():
+    from repro_torch.kernels import knn_batch
+    X = _cuda_panel(N=2, L=2 * knn_batch.CHUNK + 700)
+    _batch_both_routes_equal_plain(X, "thread", E=3, tau=1, k=4)
+
+
+def test_knn_batch_insert_kernel_at_one_warp_a_block(monkeypatch):
+    """A k the old fixed 8-warp block refused runs at fewer warps a block;
+    here the block's room is scaled down so that one warp takes it."""
+    from repro_torch.kernels import knn_batch
+    assert knn_batch.insert_warps(3632) == 8
+    assert knn_batch.insert_warps(3633) == 7
+    assert knn_batch.insert_warps(knn_batch.K_LIMIT) == 1
+    X = _tied_panel(2, 200)
+    kw = dict(E=2, tau=1, k=40)
+    want = knn_batch.plain(X, **kw)
+    monkeypatch.setattr(knn_batch, "SMEM_MAX", 8 * 40)
+    assert knn_batch.insert_warps(40) == 1
+    got = knn_batch.all_knn_batch(X, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="limit"):
+        knn_batch.insert_warps(41)
+
+
+def test_knn_batch_raises_past_its_k_limit():
+    from repro_torch.kernels import knn_batch
+    k = knn_batch.K_LIMIT + 1
+    X = _cuda_panel(N=2, L=k + 10)[:1]
+    with pytest.raises(ValueError, match=f"limit of {knn_batch.K_LIMIT}"):
+        knn_batch.all_knn_batch(X, E=1, k=k)
+
+
+def test_knn_append_root_collision_panel():
+    """New columns whose squared distance is one ulp from a stored
+    neighbour's under the same root: the stream kernel recomputes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import knn_append, knn_multi_e
+    L_old, dt = 120, 3
+    X = torch.as_tensor(ts.root_collision_panel(8, L_old, dt, seed=2),
+                        device="cuda")
+    d, i = knn_multi_e.all_knn_multi_e(X[:, :L_old], E_max=3, k=6)
+    got = knn_append.master_append(X, d, i)
+    want = knn_append.plain(X, d, i)
+    cold = knn_multi_e.all_knn_multi_e(X, E_max=3, k=6)
+    ins = knn_append._launch(X, d, i, "insert")
+    for a, b, c, e in zip(got, want, cold, ins):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
+
+
+def test_knn_append_insert_kernel_at_one_warp_a_block(monkeypatch):
+    from repro_torch.kernels import knn_append
+    assert knn_append.insert_warps(3633) == 7
+    assert knn_append.insert_warps(knn_append.K_LIMIT) == 1
+    X, d, i = _append_case(150, 3, 1, 5, 40, "tie")
+    want = knn_append.plain(X, d, i, tau=1)
+    monkeypatch.setattr(knn_append, "SMEM_MAX", 8 * 40)
+    got = knn_append.master_append(X, d, i, tau=1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_knn_append_raises_past_its_k_limit():
+    from repro_torch.kernels import knn_append
+    X = _cuda_panel(N=2, L=30)[:1]
+    k = knn_append.K_LIMIT + 1
+    d = torch.zeros((1, 1, 20, k), device="cuda")
+    i = torch.zeros((1, 1, 20, k), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match=f"limit of {knn_append.K_LIMIT}"):
+        knn_append.master_append(X, d, i)
+
+
+# ------------------------------------ the other kernels' shape ceilings
+
+
+def test_knn_fused_raises_past_its_shared_memory():
+    from repro_torch.kernels import knn_fused
+    x = _cuda_panel(N=2, L=2000)[0]  # L + 32·k past 58,112 floats
+    with pytest.raises(ValueError, match="shared memory"):
+        knn_fused.all_knn_fused(x, E=1, k=1800)
+
+
+def test_knn_multi_e_raises_past_its_levels():
+    from repro_torch.kernels import knn_multi_e
+    X = _cuda_panel(N=2, L=200)
+    with pytest.raises(ValueError, match="exceeds the kernel's 64"):
+        knn_multi_e.all_knn_multi_e(X, E_max=65)
+
+
+def test_smap_gram_raises_past_its_thetas():
+    from repro_torch.kernels import smap_gram
+    X = _cuda_panel(N=2, L=100)
+    with pytest.raises(ValueError, match="1 to 64 thetas"):
+        smap_gram.smap_gram(X[0], X, E=2, thetas=[0.5] * 65)
+
+
+def test_topk_raises_past_its_k_limit():
+    from repro_torch.kernels import topk
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    k = topk.SMEM_MAX // 8 + 1  # 29,057: one warp's list passes a block
+    D = torch.zeros((k, k), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        topk.topk_select(D, k=k)

@@ -19,7 +19,7 @@ from repro.edm import EDM as JEDM
 from repro_torch import telemetry
 from repro_torch.core import smap_group, smap_theta_sweep
 from repro_torch.core.ccm import ccm_group_batched
-from repro_torch.edm import EDM, EDMConfig, carry_session_cache
+from repro_torch.edm import EDM, Dataset, EDMConfig, carry_session_cache
 
 ATOL = 1e-5
 E_MAX = 6
@@ -157,6 +157,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert EDMConfig().device == "cuda"
     with pytest.raises(RuntimeError, match="not available"):
         EDM(_panel(4))
+
+
+def test_dataset_defaults_to_the_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="not available"):
+        Dataset(_panel(4))
+    ds = Dataset(_panel(4), device="cpu")
+    assert ds.panel.device.type == "cpu"
+    sess = EDM(ds, E_max=3, device="cpu")
+    assert sess.data is ds and sess.device.type == "cpu"
 
 
 def test_unported_methods_raise_naming_roadmap():
