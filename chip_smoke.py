@@ -27,7 +27,16 @@ phase passed; any failure exits nonzero. Phases:
    and ``knn_fused`` carry ``path_device_ms`` and ``path_bound_ms``, per
    launch at the shapes their paths launch them (the direct xmap's batch of
    B libraries, ``optimal_E``'s own-target launches at E = 1..E_max, the
-   variants path's series); ``knn_append`` is also held on a panel whose
+   variants path's series); ``lookup_rho`` also at both xmaps' launches
+   (the master route's E-groups, the direct route's batch of B = 26:
+   ``xmap_master_device_ms``, ``xmap_direct_device_ms``), each against its
+   plain version, and bit-equal at B = 26 to the B = 154 launch's rows;
+   ``knn_fused`` is held at its small shapes on both designs (and the
+   selection kernel at a small tile), its kept insertion kernel timed at
+   L = 10,000 (``insert_device_ms``), and it runs once at L = 65,536, past
+   the length its first design refused, with 256 sampled rows bit-equal
+   to the plain strict chain of those rows and its extra device memory
+   (``huge_extra_bytes``); ``knn_append`` is also held on a panel whose
    new column ties a stored neighbour's root but not its value;
    ``smap_gram``'s bound is that of its three TF32 tensor-core products
    (the float32 figure beside it), its row carries the θ-sweep shape's
@@ -102,9 +111,10 @@ SURR_SIZES = (200, 800, 1500)
 NUM_SURROGATES = 100
 NUM_LINKS = 8
 RUNS = 5              # timed runs per call, after one warm-up run
-# ρ tolerance: the kernel merges Welford moments over row slices, the plain
-# version takes a two-pass Pearson in another summation order; both are
-# float32 over 1600 terms, so they agree to a few float32 ULPs of ρ ≤ 1.
+# ρ tolerance: the kernel takes two-pass moments of 32-row tiles and merges
+# them in float64, the plain version a two-pass Pearson in another
+# summation order in float32 over 1600 terms; they agree to a few float32
+# ULPs of ρ ≤ 1.
 RHO_ATOL = 1e-5
 # A null ρ this close to the real ρ may fall on either side of it under the
 # ρ tolerance, so its p-value may differ by one rank.
@@ -120,6 +130,8 @@ APPEND_L0 = 1536          # the append path binds this prefix of the panel
 APPEND_DTS = (1, 16, 64)  # then appends this many points, each from it
 VARIANT_ES = (3, 20)      # the kNN variants path: E (k = E + 1) ...
 LONG_L = 10_000           # ... and one series at kEDM's scale (E = 20)
+HUGE_L = 65_536           # the fused kNN past its old length ceiling ...
+HUGE_ROWS = 256           # ... checked on this many sampled rows
 
 
 def smap_rho_tol(theta: float) -> float:
@@ -289,6 +301,8 @@ def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
     from repro_torch.core.embedding import (embed_offset, num_embedded,
                                             pred_rows)
     from repro_torch.edm.plan import _derive as derive
+    from repro_torch.edm.plan import _derive_idx as derive_idx
+    from repro_torch.edm.plan import _gathered_dists_batch as gathered
 
     rows_out = []
     # Small shapes first: per-level k, capped and non-monotone masks, tau 2,
@@ -448,6 +462,37 @@ def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
                               N_SERIES * rows * (2.0 * (E + 1) + 8))[0]
     ofn = lambda: [lookup.lookup_rho(X, i, w_, offset=o, own=True)  # noqa
                    for i, w_, o in own]
+    # The xmaps' launches. Master route: one launch per E-group of
+    # optimal_E's E_opt (from these own-target launches, as the session
+    # takes it), B = N library tables derived from the master against the
+    # group's targets. Direct route: the batch of B libraries at E = 3
+    # against all N targets.
+    E_opt = torch.stack(ofn()).argmax(0) + 1
+    master, master_bound = {}, []
+    for E in sorted({int(e) for e in E_opt.tolist()}):
+        tg = X[E_opt == E]
+        LpE = num_embedded(LENGTH, E, 1)
+        rows, o = pred_rows(LENGTH, E, 1, 0), embed_offset(E, 1, 0)
+        iE, okE = derive_idx(iM[:, E - 1, :LpE], k=E + 1, max_idx=LpE - 1)
+        wE = ref.make_weights(gathered(X, iE, okE, E=E, tau=1))
+        iE, wE = iE[:, :rows], wE[:, :rows]
+        Yt = lookup.transpose_targets(tg)
+        got = lookup.lookup_rho(tg, iE, wE, offset=o, Yt=Yt)
+        err = max(err, float((got - lookup.plain(tg, iE, wE, offset=o))
+                             .abs().max()))
+        master[E] = {"targets": int(tg.shape[0]), "device_ms": device_ms(
+            torch, lambda: lookup.lookup_rho(tg, iE, wE, offset=o, Yt=Yt))}
+        master_bound.append(bound_ms(
+            iE.numel() * 8 + tg.numel() * 4 + N_SERIES * tg.shape[0] * 4,
+            N_SERIES * tg.shape[0] * rows * (2.0 * (E + 1) + 8))[0])
+    Yt = lookup.transpose_targets(X)
+    ib, wb = ik[:B], w[:B]
+    got = lookup.lookup_rho(X, ib, wb, offset=off, Yt=Yt)
+    if not torch.equal(got, rk[:B]):
+        fail(f"lookup_rho at B={B} differs from the B=154 launch's rows")
+    if not err <= RHO_ATOL:
+        fail(f"lookup_rho at the xmaps' shapes differs by {err}")
+    dfn = lambda: lookup.lookup_rho(X, ib, wb, offset=off, Yt=Yt)  # noqa
     rows_out.append(kernel_row(
         "lookup_rho", "src/repro_torch/kernels/csrc/lookup_rho.cu",
         "src/repro/kernels/lookup.py:95", err, ms, plain_ms,
@@ -455,7 +500,15 @@ def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
                  N_SERIES * N_SERIES * Lp * (2.0 * (E_FIXED + 1) + 8)),
         None, device_ms(torch, kfn),
         path_device_ms=device_ms(torch, ofn, 5) / E_MAX,
-        path_bound_ms=own_bound / E_MAX))
+        path_bound_ms=own_bound / E_MAX,
+        xmap_master_groups=master,
+        xmap_master_device_ms=statistics.mean(
+            m["device_ms"] for m in master.values()),
+        xmap_master_bound_ms=statistics.mean(master_bound),
+        xmap_direct_B=B, xmap_direct_device_ms=device_ms(torch, dfn),
+        xmap_direct_bound_ms=bound_ms(
+            ib.numel() * 8 + X.numel() * 4 + B * N_SERIES * 4,
+            B * N_SERIES * Lp * (2.0 * (E_FIXED + 1) + 8))[0]))
     return rows_out
 
 
@@ -690,6 +743,13 @@ def check_smap_kernel(torch, X, smap_gram, ref, theta_grid):
                  "xmap_library_shape": lib}
 
 
+def fused_ops(E, Lp):
+    """The fused all-kNN's least float32 work: E additions a distance in
+    lag order, and a sub and a mul for each pair of lag values, whose
+    square serves every distance on its diagonal."""
+    return (E + 2.0) * Lp * Lp
+
+
 def append_ops(N, E_max, L_old, dt, tau=1):
     """Float operations one panel append needs at the least: 3 per lag term
     of every (row, column) squared distance that some level compares, each
@@ -824,8 +884,8 @@ def check_append_kernel(torch, X, knn_multi_e, knn_append, ref):
     return row, per_dt
 
 
-def check_variant_kernels(torch, X, x_long, pairwise_dist, knn_fused, topk,
-                          ref):
+def check_variant_kernels(torch, X, x_long, x_huge, pairwise_dist, knn_fused,
+                          topk, ref):
     """The mxu distances within ``MXU_RTOL`` of ‖zᵢ‖² + ‖zⱼ‖² of their plain
     version, the fused kNN bit-equal to its plain version and to the
     two-kernel path (pairwise then top-k kernels): small edge shapes, then
@@ -843,16 +903,25 @@ def check_variant_kernels(torch, X, x_long, pairwise_dist, knn_fused, topk,
         return worst, float((got - want).abs().max())
 
     def fused_held(x, what, **kw):
+        """The routed kernel against its plain version, the two-kernel
+        path and the kept insertion kernel (and the selection kernel at a
+        small tile, so tiles cut the lag windows, where it takes k)."""
         got = knn_fused.all_knn_fused(x, **kw)
         want = knn_fused.plain(x, **kw)
         D = pairwise_dist.pairwise_distances(x, E=kw["E"], tau=kw["tau"])
         two = topk.topk_select(D, k=kw["k"], max_idx=kw.get("max_idx"),
                                exclude_self=kw.get("exclude_self", True))
         del D
-        for a, b, c in zip(got, want, two):
-            if not (torch.equal(a, b) and torch.equal(a, c)):
-                fail(f"knn_fused differs from its plain version or the "
-                     f"two-kernel path at {what}")
+        others = [want, two, knn_fused._launch(x, "insert", **kw)]
+        if knn_fused.route(x.shape[0], kw["E"], kw["tau"], kw["k"]) == \
+                "select":
+            others.append(knn_fused._launch(x, "select", tile_cols=256,
+                                            **kw))
+        for other in others:
+            for a, b in zip(got, other):
+                if not torch.equal(a, b):
+                    fail(f"knn_fused differs from its plain version, the "
+                         f"two-kernel path or its other design at {what}")
 
     xs = X[5, :300].clone()
     xs[150:190] = xs[10:50]  # a duplicated stretch: exact ties
@@ -862,7 +931,10 @@ def check_variant_kernels(torch, X, x_long, pairwise_dist, knn_fused, topk,
                                    f"small, E={E}, tau={tau}")[0])
     for kw in (dict(E=1, tau=1, k=2), dict(E=3, tau=2, k=4),
                dict(E=20, tau=1, k=21), dict(E=4, tau=1, k=70, max_idx=30),
-               dict(E=3, tau=1, k=9, max_idx=120, exclude_self=False)):
+               dict(E=3, tau=1, k=9, max_idx=120, exclude_self=False),
+               dict(E=4, tau=3, k=32, max_idx=200),
+               dict(E=24, tau=1, k=25, exclude_self=False),
+               dict(E=2, tau=1, k=6, max_idx=3)):
         fused_held(xs, f"small {kw}", **kw)
 
     E, k = E_MAX, E_MAX + 1
@@ -883,24 +955,51 @@ def check_variant_kernels(torch, X, x_long, pairwise_dist, knn_fused, topk,
     del Z
     fused_held(x_long, f"L={L}, E={E}, k={k}", E=E, tau=1, k=k)
     ffn = lambda: knn_fused.all_knn_fused(x_long, E=E, k=k)  # noqa: E731
+    ins = lambda: knn_fused._launch(x_long, "insert", E=E, k=k)  # noqa
     long_ms = device_ms(torch, ffn, 5)
     # The variants path's launches: each of the 154 series at L = 1600 for
     # each E of VARIANT_ES, then the long series once.
     n_path = X.shape[0] * len(VARIANT_ES) + 1
     path_ms, path_bound = long_ms, bound_ms(L * 4 + Lp * k * 8,
-                                            3.0 * E * Lp * Lp)[0]
+                                            fused_ops(E, Lp))[0]
+    mix = {}
     for Ev in VARIANT_ES:
         Lv = LENGTH - (Ev - 1)
-        path_ms += X.shape[0] * device_ms(torch, lambda Ev=Ev: (
+        mix[Ev] = device_ms(torch, lambda Ev=Ev: (
             knn_fused.all_knn_fused(X[0], E=Ev, k=Ev + 1)))
+        path_ms += X.shape[0] * mix[Ev]
         path_bound += X.shape[0] * bound_ms(
-            LENGTH * 4 + Lv * (Ev + 1) * 8, 3.0 * Ev * Lv * Lv)[0]
+            LENGTH * 4 + Lv * (Ev + 1) * 8, fused_ops(Ev, Lv))[0]
+    # Past the old ceiling (L + 32·k ≤ 58,112 floats): one series of
+    # HUGE_L, its rows checked against the plain strict chain for
+    # HUGE_ROWS sampled rows only (the full plain matrix would not fit).
+    Lh = x_huge.shape[0]
+    Lph = Lh - (E - 1)
+    (hd, hi), huge_extra = peak_extra(
+        torch, lambda: knn_fused.all_knn_fused(x_huge, E=E, k=k))
+    rows = torch.randperm(Lph, generator=torch.Generator().manual_seed(SEED)
+                          )[:HUGE_ROWS].sort().values.to(X.device)
+    rd, ri = ref.all_knn_rows(x_huge, rows, E=E, k=k)
+    if not (torch.equal(hd[rows], rd) and torch.equal(hi[rows], ri)):
+        fail(f"knn_fused at L={Lh} differs from the plain rows")
+    if not huge_extra <= 2 * Lph * k * 8:  # its tables, twice over
+        fail(f"knn_fused at L={Lh} allocated {huge_extra} B beside its "
+             f"{Lph * k * 8} B of tables")
+    del hd, hi, rd, ri
+    hfn = lambda: knn_fused.all_knn_fused(x_huge, E=E, k=k)  # noqa: E731
     fused_row = kernel_row(
         "knn_fused", "src/repro_torch/kernels/csrc/knn_fused.cu",
         "src/repro/kernels/knn_fused.py:29", 0.0, time_ms(torch, ffn, 10),
         time_ms(torch, lambda: knn_fused.plain(x_long, E=E, k=k), 2),
-        bound_ms(L * 4 + Lp * k * 8, 3.0 * E * Lp * Lp), None, long_ms,
-        path_device_ms=path_ms / n_path, path_bound_ms=path_bound / n_path)
+        bound_ms(L * 4 + Lp * k * 8, fused_ops(E, Lp)), None, long_ms,
+        design=knn_fused.route(L, E, 1, k),
+        insert_ms=time_ms(torch, ins, 3), insert_device_ms=device_ms(
+            torch, ins, 3),
+        path_device_ms=path_ms / n_path, path_bound_ms=path_bound / n_path,
+        path_mix_device_ms={f"L{LENGTH}_E{Ev}": v for Ev, v in mix.items()},
+        huge_L=Lh, huge_device_ms=device_ms(torch, hfn, 2),
+        huge_bound_ms=bound_ms(Lh * 4 + Lph * k * 8, fused_ops(E, Lph))[0],
+        huge_extra_bytes=huge_extra, huge_sampled_rows=HUGE_ROWS)
     return [mxu_row, fused_row], {"mxu_small_max_rel_err": worst,
                                   "mxu_long_max_rel_err": rel}
 
@@ -1156,8 +1255,11 @@ def main() -> None:
     rows_out.append(append_row)
     x_long = torch.as_tensor(
         forced_network_panel(4, LONG_L, seed=SEED)[0][3], device=dev)
+    x_huge = torch.as_tensor(
+        forced_network_panel(4, HUGE_L, seed=SEED)[0][3], device=dev)
     variant_rows, variant_errs = check_variant_kernels(
-        torch, X, x_long, pairwise_dist, knn_fused, topk, ref)
+        torch, X, x_long, x_huge, pairwise_dist, knn_fused, topk, ref)
+    del x_huge
     rows_out += variant_rows
     for r in rows_out:
         print(json.dumps({"kernel_check": r}))

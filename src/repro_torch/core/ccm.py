@@ -77,11 +77,12 @@ def ccm_convergence_caps(lib, targets, *, E, tau, Tp, caps, exclude_self,
     D = ops.pairwise_distances(lib, E=E, tau=tau, impl=impl)
     dS, iS = ops.topk_select_sizes(D, k=E + 1, max_idxs=caps,
                                    exclude_self=exclude_self, impl=impl)
+    Yt = ops.lookup_targets(targets, impl=impl)
     curves = []
     for s in range(len(caps)):
         w = ops.make_weights(dS[s])
         curves.append(ops.lookup_rho(targets, iS[s, :rows], w[:rows],
-                                     offset=off, impl=impl))
+                                     offset=off, impl=impl, Yt=Yt))
     return torch.stack(curves)
 
 
@@ -123,13 +124,14 @@ def cross_map_sizes_seed(lib: torch.Tensor, targets: torch.Tensor, *, E: int,
     off = embed_offset(E, tau, Tp)
     hard_max = Lp - 1 - max(Tp, 0)
     D = ops.pairwise_distances(lib, E=E, tau=tau, impl=impl)
+    Yt = ops.lookup_targets(targets, impl=impl)
 
     def rho_for(max_idx):
         d, i = ops.topk_select(D, k=E + 1, exclude_self=exclude_self,
                                max_idx=max_idx, impl=impl)
         w = ops.make_weights(d)
         return ops.lookup_rho(targets, i[:rows], w[:rows], offset=off,
-                              impl=impl)
+                              impl=impl, Yt=Yt)
 
     return torch.stack([rho_for(min(int(s) - 1, hard_max))
                         for s in lib_sizes])
@@ -197,19 +199,20 @@ def auto_batch_libs(Lp: int, Nl: int, budget_mb: float | None = None, *,
     return -(-Nl // nb)
 
 
-def post_lookup_rho(targets, d, i, *, rows, off, impl):
+def post_lookup_rho(targets, d, i, *, rows, off, impl, Yt=None):
     """Weights + fused-ρ stage of every batched matrix engine → (B, Nt).
 
     (d, i) are (B, Lp, k) neighbour tables. Weights are elementwise with
     a fixed-order k-sum and each lookup-ρ row depends on its table alone,
-    so every row equals the B = 1 result (batch invariance).
+    so every row equals the B = 1 result (batch invariance). ``Yt``:
+    ``ops.lookup_targets(targets)``, made once per engine call.
     """
     w = ops.make_weights(d)
     return ops.lookup_rho(targets, i[:, :rows], w[:, :rows], offset=off,
-                          impl=impl)
+                          impl=impl, Yt=Yt)
 
 
-def _group_step(libs, targets, *, E, tau, Tp, k, impl):
+def _group_step(libs, targets, *, E, tau, Tp, k, impl, Yt=None):
     """One engine launch: distance→top-k→weights→ρ for B libraries."""
     L = libs.shape[-1]
     rows = pred_rows(L, E, tau, Tp)
@@ -217,7 +220,8 @@ def _group_step(libs, targets, *, E, tau, Tp, k, impl):
     hard_max = num_embedded(L, E, tau) - 1 - max(Tp, 0)
     d, i = ops.all_knn_batch(libs, E=E, tau=tau, k=k, exclude_self=True,
                              max_idx=hard_max, impl=impl)
-    return post_lookup_rho(targets, d, i, rows=rows, off=off, impl=impl)
+    return post_lookup_rho(targets, d, i, rows=rows, off=off, impl=impl,
+                           Yt=Yt)
 
 
 def pad_batch(chunk: torch.Tensor, B: int) -> torch.Tensor:
@@ -277,11 +281,12 @@ def make_group_launch(libs, targets, *, E, tau, Tp, k, impl):
     """Launch closure of the direct batched engine: ``launch(a, b, B)``."""
     ops.check_impl(impl)
     group_launches = telemetry.counter("edm_group_launches")
+    Yt = ops.lookup_targets(targets, impl=impl)
 
     def launch(a, b, B):
         group_launches.inc()
         return _group_step(pad_batch(libs[a:b], B), targets, E=E, tau=tau,
-                           Tp=Tp, k=k, impl=impl)
+                           Tp=Tp, k=k, impl=impl, Yt=Yt)
 
     return launch
 

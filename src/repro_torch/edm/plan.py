@@ -190,17 +190,18 @@ def ccm_convergence_from_master(x, iM_E, targets, *, E, tau, Tp, caps, k,
     rows = pred_rows(L, E, tau, Tp)
     off = embed_offset(E, tau, Tp)
     iE = iM_E[:Lp]
+    Yt = ops.lookup_targets(targets, impl=impl)
     curves = []
     for m in caps:
         ik, ok = _derive_idx(iE, k=k, max_idx=m)
         d = _gathered_dists(x, ik, ok, E=E, tau=tau)
         w = ops.make_weights(d)
         curves.append(ops.lookup_rho(targets, ik[:rows], w[:rows],
-                                     offset=off, impl=impl))
+                                     offset=off, impl=impl, Yt=Yt))
     return torch.stack(curves)
 
 
-def _master_group_step(Xb, iMb, targets, *, E, tau, Tp, k, impl):
+def _master_group_step(Xb, iMb, targets, *, E, tau, Tp, k, impl, Yt=None):
     """One master-derived engine launch: (B, Nt) ρ for B libraries.
 
     The cached-session twin of ``core.ccm._group_step``: indices from the
@@ -214,19 +215,21 @@ def _master_group_step(Xb, iMb, targets, *, E, tau, Tp, k, impl):
     hard_max = Lp - 1 - max(Tp, 0)
     ik, ok = _derive_idx(iMb[:, :Lp], k=k, max_idx=hard_max)
     d = _gathered_dists_batch(Xb, ik, ok, E=E, tau=tau)
-    return post_lookup_rho(targets, d, ik, rows=rows, off=off, impl=impl)
+    return post_lookup_rho(targets, d, ik, rows=rows, off=off, impl=impl,
+                           Yt=Yt)
 
 
 def make_master_group_launch(X, iM_E, targets, *, E, tau, Tp, k, impl):
     """Launch closure of the master-derived engine: ``launch(a, b, B)``."""
     ops.check_impl(impl)
     master_launches = telemetry.counter("edm_master_launches")
+    Yt = ops.lookup_targets(targets, impl=impl)
 
     def launch(a, b, B):
         master_launches.inc()
         return _master_group_step(
             pad_batch(X[a:b], B), pad_batch(iM_E[a:b], B), targets, E=E,
-            tau=tau, Tp=Tp, k=k, impl=impl)
+            tau=tau, Tp=Tp, k=k, impl=impl, Yt=Yt)
 
     return launch
 

@@ -112,9 +112,12 @@ _SIGNATURES = {
     "knn_batch_thread_launch": ("knn_batch",
                                 [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                  _P]),
-    "lookup_rho_launch": ("lookup_rho",
-                          [_P, _LL, _LL, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P, _P]),
+    "lookup_rho_all_launch": ("lookup_rho",
+                              [_P, _I, _I, _I, _P, _LL, _LL, _P, _LL, _LL,
+                               _I, _I, _I, _I, _I, _P, _P, _P]),
+    "lookup_rho_own_launch": ("lookup_rho",
+                              [_P, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I,
+                               _I, _I, _I, _I, _P, _P, _P]),
     "lookup_launch": ("lookup", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P]),
     "pairwise_dist_launch": ("pairwise_dist", [_P, _I, _I, _I, _P, _P]),
     "topk_select_launch": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P]),
@@ -131,7 +134,10 @@ _SIGNATURES = {
                                   _P, _P, _P]),
     "pairwise_mxu_launch": ("pairwise_mxu", [_P, _I, _I, _I, _P, _P]),
     "knn_fused_launch": ("knn_fused",
-                         [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+                         [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "knn_fused_select_launch": ("knn_fused",
+                                [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P]),
 }
 
 

@@ -17,11 +17,20 @@ wrapper takes a batch of B tables in one launch, in two forms:
 * own target  — (B, rows, k) tables against (B, L) series, table b
   against series b only → (B,): the ρ(E) sweep of the optimal-E search.
 
-Each (b, n) result does not depend on B. Design and bound:
-``csrc/lookup_rho.cu``. The plain versions are ``plain`` and
-``plain_own`` (``kernels.ref``); the kernel merges Welford moments in
-another order than their two-pass Pearson, so the two agree to a
-tolerance, not bit for bit.
+The kernel's moment order is fixed by ``rows`` alone: tiles of
+``TILE_ROWS`` rows with two-pass float32 moments, merged in float64 as a
+tree into chunks of ``CHUNK_ROWS`` rows, the chunks merged in order
+(``csrc/lookup_rho.cu``; ``_emulate`` repeats it on the CPU for the
+tests). So each (b, n) result has the same bits at any B and Nt, in
+either form. The plain versions are ``plain`` and ``plain_own``
+(``kernels.ref``): a two-pass Pearson in another order, so the two agree
+to a tolerance, not bit for bit.
+
+Tables may be row-sliced views (their batch and row strides go to the
+kernel; only the last axis must be contiguous). The all-targets form
+reads the targets transposed, ``transpose_targets(Y)``: a caller that
+launches several times against one panel makes it once and passes it as
+``Yt``.
 """
 
 from __future__ import annotations
@@ -35,21 +44,43 @@ plain = _ref.lookup_rho_batch
 plain_own = _ref.lookup_rho_own
 plain_lookup = _ref.lookup
 
-_THREADS = 256
+#: The moment order: tiles of TILE_ROWS rows, chunks of CHUNK_TILES tiles.
+TILE_ROWS = 32
+CHUNK_TILES = 8
+CHUNK_ROWS = TILE_ROWS * CHUNK_TILES
+#: Targets a block of the all-targets kernel: ``transpose_targets``
+#: zero-pads the target axis to a multiple of it.
+TARGET_TILE = 32
+#: Tables with k above this are read in place, not staged in shared memory;
+#: so is the own-target series past SERIES_STAGE_MAX points.
+STAGE_K_MAX = 32
+SERIES_STAGE_MAX = 12_288
 
 
-def _block(Nt: int, own: bool) -> tuple[int, int]:
-    """(targets, row slices) per block: 32 targets a warp, or 1 when own."""
-    tn = 1 if own else min(32, Nt)
-    tj = 1
-    while tj * 2 * tn <= _THREADS:
-        tj *= 2
-    return tn, tj
+def transpose_targets(Y: torch.Tensor) -> torch.Tensor:
+    """(Nt, L) targets → (L, Ntp) float32, Ntp the next multiple of
+    ``TARGET_TILE``, zero past Nt: the all-targets kernel's layout."""
+    Nt, L = Y.shape
+    ntp = -(-Nt // TARGET_TILE) * TARGET_TILE
+    Yt = torch.zeros((L, ntp), dtype=torch.float32, device=Y.device)
+    Yt[:, :Nt] = Y.t()
+    return Yt
+
+
+def _table(t: torch.Tensor, dtype) -> torch.Tensor:
+    """The table as the kernel reads it: its dtype, last axis contiguous
+    (row-sliced views pass as they are)."""
+    t = t.to(dtype)
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
-               offset: int = 0, own: bool = False) -> torch.Tensor:
-    """Batched fused lookup-ρ on CUDA tensors (see the module docstring)."""
+               offset: int = 0, own: bool = False,
+               Yt: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched fused lookup-ρ on CUDA tensors (see the module docstring).
+
+    ``Yt``: ``transpose_targets(Y)``, made once by a caller that launches
+    several times against one panel (all-targets form only)."""
     if Y.device.type != "cuda":
         raise ValueError(f"lookup_rho kernel needs CUDA tensors, got "
                          f"{Y.device}")
@@ -70,26 +101,122 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
                       device=Y.device)
     if B == 0 or Nt == 0:
         return out
-    idx_c = idx.to(torch.int32).contiguous()
-    w_c = w.float().contiguous()
-    if own:  # each thread reads its own series along its row
-        Yc = Y.float().contiguous()
-        sn, sc = L, 1
-    else:  # a warp's 32 targets read 32 consecutive words
-        Yc = Y.float().t().contiguous()
-        sn, sc = 1, Nt
-    tn, tj = _block(Nt, own)
-    fn = _build.entry("lookup_rho_launch")
+    if rows == 0 or k == 0:  # no rows, or no neighbour: zero variance
+        return out.zero_()
+    ic = _table(idx, torch.int32)
+    wc = _table(w, torch.float32)
+    nch = -(-rows // CHUNK_ROWS)
+    one = own or Nt == 1  # the one-target kernel (series stride 0: shared)
+    part = (torch.empty(nch * 6 * (B if one else B * Nt), dtype=torch.float64,
+                        device=Y.device) if nch > 1 else out)
+    staged = int(k <= STAGE_K_MAX and (not one or L <= SERIES_STAGE_MAX))
     with torch.cuda.device(Y.device):
-        err = fn(Yc.data_ptr(), sn, sc, L, Nt, idx_c.data_ptr(),
-                 w_c.data_ptr(), B, rows, k, int(offset), int(own), tn, tj,
-                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        tabs = (ic.data_ptr(), ic.stride(0), ic.stride(1), wc.data_ptr(),
+                wc.stride(0), wc.stride(1), B, rows, k, int(offset), staged,
+                part.data_ptr(), out.data_ptr(), stream)
+        if one:
+            Yc = Y.float()
+            if Yc.stride(-1) != 1:
+                Yc = Yc.contiguous()
+            err = _build.entry("lookup_rho_own_launch")(
+                Yc.data_ptr(), Yc.stride(0) if own else 0, L, *tabs)
+        else:
+            if Yt is None:
+                Yt = transpose_targets(Y)
+            ntp = -(-Nt // TARGET_TILE) * TARGET_TILE
+            if (Yt.shape != (L, ntp) or Yt.dtype != torch.float32
+                    or not Yt.is_contiguous() or Yt.device != Y.device):
+                raise ValueError(f"Yt must be transpose_targets(Y): float32 "
+                                 f"({L}, {ntp}) on {Y.device}, got "
+                                 f"{Yt.dtype} {tuple(Yt.shape)}")
+            err = _build.entry("lookup_rho_all_launch")(
+                Yt.data_ptr(), L, ntp, Nt, *tabs)
     _build.check(err, "lookup_rho")
     lookup_rho.launches += 1
     return out
 
 
 lookup_rho.launches = 0
+
+
+def _emulate(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
+             offset: int = 0, own: bool = False) -> torch.Tensor:
+    """The kernel's arithmetic on the CPU, operation for operation (tests
+    only; no path calls it): the plain k-sum predictions, then the moment
+    order of ``csrc/lookup_rho.cu``. Same shapes as ``lookup_rho``."""
+    B, rows, k = idx.shape
+    Y = Y.float()
+    if own:
+        yh = torch.stack([_ref.lookup(Y[b:b + 1], idx[b], w[b],
+                                      offset=offset)[0] for b in range(B)])
+        yt = Y[:, offset:offset + rows]
+    else:
+        yh = torch.stack([_ref.lookup(Y, idx[b], w[b], offset=offset)
+                          for b in range(B)])
+        yt = Y[None, :, offset:offset + rows].expand(B, -1, -1)
+    return _moment_order(yh, yt)
+
+
+def _moment_order(yh: torch.Tensor, yt: torch.Tensor) -> torch.Tensor:
+    """ρ of predictions ``yh`` against truth ``yt`` (both (..., rows)
+    float32) in the kernel's order → (...) float32."""
+    rows = yh.shape[-1]
+    if rows == 0:
+        return torch.zeros(yh.shape[:-1])
+    nch = -(-rows // CHUNK_ROWS)
+    pad = nch * CHUNK_ROWS - rows
+    tiles = (nch, CHUNK_TILES, 8, 4)  # chunk, tile, r, slot: row 4r + s
+    ok = (torch.arange(nch * CHUNK_ROWS) < rows).reshape(tiles)
+    zero = torch.zeros((), dtype=torch.float32)
+
+    def split(v):
+        v = torch.nn.functional.pad(v.float(), (0, pad))
+        return torch.where(ok, v.reshape(*v.shape[:-1], *tiles), zero)
+
+    def tile_sum(v):  # slot partials left to right, then a pairwise tree
+        p = [zero] * 4
+        for s in range(4):
+            for r in range(8):
+                p[s] = p[s] + v[..., r, s]
+        while len(p) > 1:
+            p = [p[i] + p[i + 1] for i in range(0, len(p), 2)]
+        return p[0]
+
+    a, b = split(yh), split(yt)
+    nt = ok.sum((-2, -1)).float().expand(a.shape[:-2])
+    live = nt > 0
+    ntz = torch.where(live, nt, torch.ones_like(nt))
+    ma = tile_sum(a) / ntz
+    mb = tile_sum(b) / ntz
+    da = torch.where(ok, a - ma[..., None, None], zero)
+    db = torch.where(ok, b - mb[..., None, None], zero)
+    mom = [nt, ma, mb, tile_sum(da * da), tile_sum(db * db),
+           tile_sum(da * db)]
+    mom = [torch.where(live, m, zero).double() for m in mom]
+
+    def merge(x, y):
+        n = x[0] + y[0]
+        t = y[0] / torch.where(n > 0, n, torch.ones_like(n))
+        da, db = y[1] - x[1], y[2] - x[2]
+        f = x[0] * t
+        r = [n, x[1] + da * t, x[2] + db * t,
+             x[3] + y[3] + da * da * f, x[4] + y[4] + db * db * f,
+             x[5] + y[5] + da * db * f]
+        return [torch.where(y[0] == 0, xv, torch.where(x[0] == 0, yv, rv))
+                for xv, yv, rv in zip(x, y, r)]
+
+    h = CHUNK_TILES // 2
+    while h >= 1:  # tile w with w + h
+        mom = merge([m[..., :h] for m in mom], [m[..., h:2 * h] for m in mom])
+        h //= 2
+    acc = [m[..., 0, 0] for m in mom]
+    for c in range(1, nch):
+        acc = merge(acc, [m[..., c, 0] for m in mom])
+    den = torch.sqrt(acc[3] * acc[4])
+    rho = torch.where(den > 0, acc[5] / torch.clamp(den, min=1e-30),
+                      torch.zeros_like(den))
+    return rho.float()
 
 
 def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,

@@ -207,12 +207,24 @@ def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
                                    exclude_self=exclude_self, max_idx=max_idx)
 
 
+def lookup_targets(Y: torch.Tensor, *, impl: str = "auto"):
+    """The targets as ``lookup_rho``'s kernel reads them (transposed and
+    padded), for a caller that launches several times against one panel
+    to make once and pass as ``Yt``; None where no kernel reads them (the
+    plain versions, or a single target)."""
+    if not _kernel_path(Y, impl) or Y.shape[0] == 1:
+        return None
+    return _lookup_k.transpose_targets(Y)
+
+
 def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
-               offset: int = 0, impl: str = "auto") -> torch.Tensor:
+               offset: int = 0, impl: str = "auto",
+               Yt: torch.Tensor | None = None) -> torch.Tensor:
     """Fused lookup + Pearson ρ of every target (paper §3.4).
 
     ``idx``/``w`` (rows, k) → (N,); a batch (B, rows, k) → (B, N), each
-    row independent of B.
+    row independent of B. ``Yt``: ``lookup_targets(Y)``, made once per
+    panel by a caller that launches repeatedly (optional).
     """
     kernel = _kernel_path(Y, impl)
     _tel("lookup_rho", kernel, N=int(Y.shape[0]))
@@ -221,8 +233,9 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
             return _ref.lookup_rho(Y, idx, w, offset=offset)
         return _ref.lookup_rho_batch(Y, idx, w, offset=offset)
     if idx.ndim == 2:
-        return _lookup_k.lookup_rho(Y, idx[None], w[None], offset=offset)[0]
-    return _lookup_k.lookup_rho(Y, idx, w, offset=offset)
+        return _lookup_k.lookup_rho(Y, idx[None], w[None], offset=offset,
+                                    Yt=Yt)[0]
+    return _lookup_k.lookup_rho(Y, idx, w, offset=offset, Yt=Yt)
 
 
 def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,

@@ -248,6 +248,32 @@ def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
                        exclude_self=exclude_self, max_idx=max_idx)
 
 
+def all_knn_rows(x: torch.Tensor, rows, *, E: int, tau: int = 1,
+                 k: int | None = None, exclude_self: bool = True,
+                 max_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``all_knn``'s rows ``rows`` alone → (len(rows), k) each: the strict
+    chain of those rows against every column and the same stable
+    selection, without the (Lp, Lp) matrix (a check of a long series)."""
+    x = x.float()
+    Lp = num_embedded(x.shape[-1], E, tau)
+    k = E + 1 if k is None else int(k)
+    if k > Lp:
+        raise ValueError(f"k={k} exceeds the {Lp} candidates per row")
+    r = torch.as_tensor(rows, device=x.device).long()
+    acc = torch.zeros((r.numel(), Lp), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        xe = x[e * tau:e * tau + Lp]
+        acc = acc + strict_sq(xe[r][:, None] - xe[None, :])
+    cols = torch.arange(Lp, device=x.device)[None, :]
+    mask = torch.zeros_like(acc, dtype=torch.bool)
+    if exclude_self:
+        mask |= cols == r[:, None]
+    if max_idx is not None:
+        mask |= cols > int(max_idx)
+    sv, si = torch.sort(torch.where(mask, _INF, acc), dim=-1, stable=True)
+    return _sorted_roots(sv[:, :k]), si[:, :k].to(torch.int32)
+
+
 def check_sizes_caps(max_idxs) -> tuple[int, ...]:
     """Validate a multi-cap tuple (non-empty, >= 0, ascending) → ints."""
     caps = tuple(int(m) for m in max_idxs)

@@ -458,6 +458,98 @@ def test_knn_fused_kernel_equals_plain_and_two_kernel(E, tau, k, max_idx,
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+@pytest.mark.parametrize("E,tau,k,max_idx,exclude_self,tile_cols", [
+    (1, 1, 1, None, True, 256), (3, 2, 4, None, True, 256),
+    (20, 1, 21, None, True, 256), (20, 1, 32, 200, True, 1024),
+    (24, 1, 25, None, False, 256), (32, 2, 32, 150, True, 256),
+    (4, 3, 9, 5, True, 256), (2, 1, 16, None, False, 1024),
+])
+def test_knn_fused_designs_equal_plain(E, tau, k, max_idx, exclude_self,
+                                       tile_cols):
+    """The selection kernel (at its own tile and a small one, so that
+    tiles cut the lag windows) and the kept insertion kernel, bit-equal
+    to the plain version on a series with exact ties."""
+    from repro_torch.kernels import knn_fused
+    x = torch.round(_ties_series() * 4) / 4
+    kw = dict(E=E, tau=tau, k=k, max_idx=max_idx, exclude_self=exclude_self)
+    want = knn_fused.plain(x, **kw)
+    sel = knn_fused._launch(x, "select", tile_cols=tile_cols, **kw)
+    ins = knn_fused._launch(x, "insert", **kw)
+    for a, b, c in zip(sel, ins, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def test_knn_fused_designs_equal_plain_at_the_variants_shape():
+    """L = 1600, E = 20, k = 21 (eight column slices a block) and E = 3."""
+    from repro_torch.kernels import knn_fused
+    x = _cuda_panel(N=3, L=1600)[2]
+    for E in (3, 20):
+        assert knn_fused.route(1600, E, 1, E + 1) == "select"
+        got = knn_fused.all_knn_fused(x, E=E)
+        want = knn_fused.plain(x, E=E)
+        ins = knn_fused._launch(x, "insert", E=E)
+        for a, b, c in zip(got, want, ins):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _rho_case(B, Nt, rows, k, off=2, seed=0, extra=0):
+    """(Y, idx, w) on the card: tables with (-1, 0) slots, ``extra`` spare
+    rows in front (a view that starts off 16-byte alignment)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    L = rows + off
+    Y = rng.standard_normal((Nt, L)).astype(np.float32)
+    idx = rng.integers(0, rows, size=(B, rows + extra, k)).astype(np.int32)
+    d = np.sort(rng.uniform(0.01, 2.0, size=(B, rows + extra, k)), axis=-1)
+    idx[:, ::7, -1] = -1
+    d[:, ::7, -1] = np.inf
+    w = ref.make_weights(torch.as_tensor(d, dtype=torch.float32))
+    return (torch.as_tensor(Y, device="cuda"),
+            torch.as_tensor(idx, device="cuda"), w.cuda())
+
+
+@pytest.mark.parametrize("B,Nt,rows,k,own", [
+    (3, 5, 1, 3, False), (3, 5, 31, 4, False), (2, 40, 256, 21, False),
+    (4, 33, 700, 5, False), (6, 1, 513, 2, False), (5, 5, 257, 21, True),
+    (3, 3, 300, 40, True), (2, 7, 300, 48, False), (2, 64, 1598, 4, False),
+])
+def test_lookup_rho_kernel_equals_its_emulated_order(B, Nt, rows, k, own):
+    """The kernel's ρ bit-equal to ``lookup._emulate`` on the CPU (the order
+    the CPU tests hold against the reference): one row, a ragged tile, a
+    chunk, a ragged last chunk, one target, k past the staging limit."""
+    from repro_torch.kernels import lookup
+    Y, idx, w = _rho_case(B, B if own else Nt, rows, k)
+    got = lookup.lookup_rho(Y, idx, w, offset=2, own=own)
+    want = lookup._emulate(Y.cpu(), idx.cpu(), w.cpu(), offset=2, own=own)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lookup_rho_kernel_bits_do_not_depend_on_batch_or_layout():
+    """(b, n) at B = 1 equals B = all; row-sliced views that start off
+    16-byte alignment, tables whose rows are not contiguous, and a
+    caller's ``Yt`` give the same bits as contiguous copies."""
+    from repro_torch.kernels import lookup
+    B, Nt, rows = 4, 37, 600
+    Y, idx, w = _rho_case(B, Nt, rows, 5, extra=3)
+    iv, wv = idx[:, 3:], w[:, 3:]  # rows 3.. of each table: a view
+    full = lookup.lookup_rho(Y, iv, wv, offset=2)
+    assert torch.equal(full, lookup.lookup_rho(
+        Y, iv.contiguous(), wv.contiguous(), offset=2))
+    assert torch.equal(full, lookup.lookup_rho(
+        Y, iv, wv, offset=2, Yt=lookup.transpose_targets(Y)))
+    for b in range(B):
+        assert torch.equal(full[b], lookup.lookup_rho(
+            Y, iv[b:b + 1], wv[b:b + 1], offset=2)[0])
+    wide_i = torch.cat([iv, iv[..., :1]], dim=-1)[..., :5]  # row stride 6
+    wide_w = torch.cat([wv, wv[..., :1]], dim=-1)[..., :5]
+    assert wide_i.stride(1) == 6
+    assert torch.equal(full, lookup.lookup_rho(Y, wide_i, wide_w, offset=2))
+    own = lookup.lookup_rho(Y[:B], iv, wv, offset=2, own=True)
+    assert torch.equal(own, torch.diagonal(full[:, :B]))
+
+
 def test_session_append_on_gpu_equals_cold_session_in_one_launch():
     from repro_torch.edm import EDM
     from repro_torch.kernels import knn_append
@@ -601,10 +693,27 @@ def test_knn_append_raises_past_its_k_limit():
 
 
 def test_knn_fused_raises_past_its_shared_memory():
-    from repro_torch.kernels import knn_fused
-    x = _cuda_panel(N=2, L=2000)[0]  # L + 32·k past 58,112 floats
+    """The old ceiling (L + 32·k ≤ 58,112 floats) is gone: L = 2000 with
+    k = 1800 runs on the insertion kernel, reading the series from global
+    memory; a series of 60,000 runs on the selection kernel (256 sampled
+    rows held against the plain rows). Only a k whose one list passes a
+    block's shared memory still raises."""
+    from repro_torch.kernels import knn_fused, ref
+    x = _cuda_panel(N=2, L=2000)[0]
+    assert knn_fused.route(2000, 1, 1, 1800) == "insert"
+    got = knn_fused.all_knn_fused(x, E=1, k=1800)
+    want = knn_fused.plain(x, E=1, k=1800)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rng = np.random.default_rng(0)
+    xl = torch.as_tensor(np.round(rng.standard_normal(60_000) * 8) / 8,
+                         dtype=torch.float32, device="cuda")
+    d, i = knn_fused.all_knn_fused(xl, E=3, k=9)
+    rows = np.sort(rng.choice(d.shape[0], 256, replace=False))
+    dr, ir = ref.all_knn_rows(xl, rows, E=3, k=9)
+    assert torch.equal(d[rows], dr) and torch.equal(i[rows], ir)
+    k = knn_fused.K_LIMIT + 1
     with pytest.raises(ValueError, match="shared memory"):
-        knn_fused.all_knn_fused(x, E=1, k=1800)
+        knn_fused.all_knn_fused(torch.zeros(k + 1, device="cuda"), E=1, k=k)
 
 
 def test_knn_multi_e_raises_past_its_levels():
