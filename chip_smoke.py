@@ -22,12 +22,15 @@ phase passed; any failure exits nonzero. Phases:
    shapes (the new one, and the insertion kernel each keeps for k > 32),
    the two designs bit-equal to each other at the path's shapes (the
    insertion kernel, the previous design, timed there too: ``insert_ms``,
-   ``insert_device_ms``); ``knn_multi_e`` is timed at one series (each of
-   ``cache=False`` ``optimal_E``'s launches); ``knn_batch``, ``lookup_rho``
-   and ``knn_fused`` carry ``path_device_ms`` and ``path_bound_ms``, per
-   launch at the shapes their paths launch them (the direct xmap's batch of
-   B libraries, ``optimal_E``'s own-target launches at E = 1..E_max, the
-   variants path's series); ``lookup_rho`` also at both xmaps' launches
+   ``insert_device_ms``; the two top-k kernels likewise); ``knn_multi_e``
+   is timed at one series (each of
+   ``cache=False`` ``optimal_E``'s launches); ``knn_batch``, ``lookup_rho``,
+   ``topk_select`` and ``knn_fused`` carry ``path_device_ms`` and
+   ``path_bound_ms``, per launch at the shapes their paths launch them (the
+   direct xmap's batch of B libraries, ``optimal_E``'s own-target launches
+   at E = 1..E_max, the variants path's series: ``topk_select`` at its
+   L = 10,000, k = 21 launch beside the row's Lp = 1598 one);
+   ``lookup_rho`` also at both xmaps' launches
    (the master route's E-groups, the direct route's batch of B = 26:
    ``xmap_master_device_ms``, ``xmap_direct_device_ms``), each against its
    plain version, and bit-equal at B = 26 to the B = 154 launch's rows;
@@ -512,20 +515,26 @@ def check_main_path_kernels(torch, X, knn_multi_e, knn_batch, lookup, ref):
     return rows_out
 
 
-def check_slice_kernels(torch, X, pairwise_dist, topk, lookup, ref,
+def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
                         lib_caps):
     """The four kernels of the convergence, significance and per-series
     simplex path against their plain versions, bit for bit: small edge
     cases, then the path's shapes (one series, Lp = 1598 at E = 3, k = 4,
-    the convergence caps)."""
+    the convergence caps). Both top-k designs are held there, and the
+    kept insertion kernels are timed beside the selection kernels
+    (``insert_ms``,
+    ``insert_device_ms``); ``topk_select`` also at the variants path's
+    launch, L = 10,000, E = 20, k = 21 (``path_device_ms``)."""
 
     def equal_pair(got, want, what):
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             fail(f"{what} differs from its plain version")
 
-    # Small shapes: tau 2, k up to 70, rows with fewer than k valid
-    # candidates, caps on and across 32-column batches, a single cap, a
-    # cap below k, caps past the last column.
+    # Small shapes: tau 2, k up to 70 and on both sides of the designs'
+    # boundary (32, 33), rows with fewer than k valid candidates, caps on
+    # and across 32-column batches, a single cap (0 too), a cap below k,
+    # close caps, caps past the last column, +inf values; the routed
+    # kernel and the insertion kernel, each against the plain version.
     xs = X[5, :300].clone()
     xs[150:190] = xs[10:50]  # a duplicated stretch: exact ties
     for E, tau in ((1, 1), (3, 2), (20, 1)):
@@ -534,15 +543,25 @@ def check_slice_kernels(torch, X, pairwise_dist, topk, lookup, ref,
             fail(f"pairwise_dist differs from its plain version at E={E}, "
                  f"tau={tau}")
     Ds = pairwise_dist.plain(xs, E=3, tau=2)
-    for k, mx in ((4, None), (70, None), (70, 30), (1, 0)):
-        equal_pair(topk.topk_select(Ds, k=k, max_idx=mx),
-                   topk.plain_select(Ds, k=k, max_idx=mx),
+    Ds[7, 20:90] = float("inf")
+    for k, mx in ((4, None), (70, None), (70, 30), (1, 0), (32, None),
+                  (33, None), (32, 10), (21, 250)):
+        want = topk.plain_select(Ds, k=k, max_idx=mx)
+        equal_pair(topk.topk_select(Ds, k=k, max_idx=mx), want,
                    f"topk_select at k={k}, max_idx={mx}")
+        equal_pair(topk._launch_select(Ds, "insert", k=k, max_idx=mx), want,
+                   f"topk_select's insertion kernel at k={k}, max_idx={mx}")
     for k, caps in ((4, (31, 32, 33, 63, 64, 200)), (70, (2, 40, 40, 5000)),
-                    (5, (150,)), (3, (0, 1, 95, 295))):
-        equal_pair(topk.topk_select_sizes(Ds, k=k, max_idxs=caps),
-                   topk.plain_sizes(Ds, k=k, max_idxs=caps),
+                    (5, (150,)), (3, (0, 1, 95, 295)), (4, (0,)),
+                    (32, (10, 31, 200, 295)), (33, (10, 31, 200, 295)),
+                    (6, (100, 101, 101, 103)), (21, (0, 3, 20, 21, 600))):
+        want = topk.plain_sizes(Ds, k=k, max_idxs=caps)
+        equal_pair(topk.topk_select_sizes(Ds, k=k, max_idxs=caps), want,
                    f"topk_select_sizes at k={k}, caps={caps}")
+        equal_pair(topk._launch_sizes(Ds, "insert", k=k, max_idxs=caps),
+                   want, f"topk_select_sizes' insertion kernel at k={k}, "
+                   f"caps={caps}")
+    Ds = pairwise_dist.plain(xs, E=3, tau=2)
     ds, is_ = topk.plain_select(Ds, k=21, max_idx=250)
     ws = ref.make_weights(ds)
     is_[::5, -1] = -1  # invalid slots, as derived tables carry them
@@ -578,21 +597,52 @@ def check_slice_kernels(torch, X, pairwise_dist, topk, lookup, ref,
     dk, ik = topk.topk_select(D, k=k, max_idx=mx)
     equal_pair((dk, ik), topk.plain_select(D, k=k, max_idx=mx),
                "topk_select at Lp=1598, k=4")
+    ins = lambda: topk._launch_select(D, "insert", k=k,  # noqa: E731
+                                      max_idx=mx)
+    equal_pair(ins(), (dk, ik), "topk_select's insertion kernel at Lp=1598")
     row("topk_select", "topk.cu", "topk.py:39",
         lambda: topk.topk_select(D, k=k, max_idx=mx),
         lambda: topk.plain_select(D, k=k, max_idx=mx),
         bound_ms(Lp * Lp * 4 + Lp * k * 8, float(Lp * Lp)),
         lambda: torch.topk(D, k, dim=1, largest=False))
+    rows_out[-1].update(design=topk.route(k),
+                        insert_ms=time_ms(torch, ins, 50),
+                        insert_device_ms=device_ms(torch, ins))
+    # The variants path's launch: L = 10,000, E = 20, k = 21 (core.all_knn's
+    # two kernels), against the plain version and the insertion kernel.
+    E_l, k_l = E_MAX, E_MAX + 1
+    D_l = pairwise_dist.pairwise_distances(x_long, E=E_l, tau=1)
+    Lp_l = D_l.shape[0]
+    got = topk.topk_select(D_l, k=k_l)
+    equal_pair(got, topk.plain_select(D_l, k=k_l),
+               f"topk_select at L={x_long.shape[0]}, k={k_l}")
+    ins_l = lambda: topk._launch_select(D_l, "insert", k=k_l)  # noqa: E731
+    equal_pair(ins_l(), got, f"topk_select's insertion kernel at "
+               f"L={x_long.shape[0]}, k={k_l}")
+    rows_out[-1].update(
+        path_L=x_long.shape[0], path_k=k_l,
+        path_device_ms=device_ms(torch, lambda: topk.topk_select(D_l, k=k_l),
+                                 5),
+        path_bound_ms=bound_ms(Lp_l * Lp_l * 4 + Lp_l * k_l * 8,
+                               float(Lp_l * Lp_l))[0],
+        path_insert_device_ms=device_ms(torch, ins_l, 3))
+    del D_l, got
 
     S, last = len(lib_caps), lib_caps[-1]
-    equal_pair(topk.topk_select_sizes(D, k=k, max_idxs=lib_caps),
-               topk.plain_sizes(D, k=k, max_idxs=lib_caps),
+    sk = topk.topk_select_sizes(D, k=k, max_idxs=lib_caps)
+    equal_pair(sk, topk.plain_sizes(D, k=k, max_idxs=lib_caps),
                f"topk_select_sizes at Lp=1598, k=4, caps={lib_caps}")
+    ins = lambda: topk._launch_sizes(D, "insert", k=k,  # noqa: E731
+                                     max_idxs=lib_caps)
+    equal_pair(ins(), sk, "topk_select_sizes' insertion kernel at Lp=1598")
     row("topk_select_sizes", "topk.cu", "topk.py:124",
         lambda: topk.topk_select_sizes(D, k=k, max_idxs=lib_caps),
         lambda: topk.plain_sizes(D, k=k, max_idxs=lib_caps),
         bound_ms(Lp * (last + 1) * 4 + S * Lp * k * 8,
                  float(Lp * (last + 1))))
+    rows_out[-1].update(design=topk.route(k, S),
+                        insert_ms=time_ms(torch, ins, 50),
+                        insert_device_ms=device_ms(torch, ins))
 
     rows = Lp - 1  # simplex_predict's rows and offset at Tp = 1
     off = E
@@ -1245,16 +1295,16 @@ def main() -> None:
     lib_caps, _ = normalize_lib_sizes(LIB_SIZES, Lp=LENGTH - (E_FIXED - 1))
     rows_out = check_main_path_kernels(torch, X, knn_multi_e, knn_batch,
                                        lookup, ref)
-    rows_out += check_slice_kernels(torch, X, pairwise_dist, topk, lookup,
-                                    ref, lib_caps)
+    x_long = torch.as_tensor(
+        forced_network_panel(4, LONG_L, seed=SEED)[0][3], device=dev)
+    rows_out += check_slice_kernels(torch, X, x_long, pairwise_dist, topk,
+                                    lookup, ref, lib_caps)
     smap_row, smap_shapes = check_smap_kernel(torch, X, smap_gram, ref,
                                               DEFAULT_THETAS)
     rows_out.append(smap_row)
     append_row, append_shapes = check_append_kernel(torch, X, knn_multi_e,
                                                     knn_append, ref)
     rows_out.append(append_row)
-    x_long = torch.as_tensor(
-        forced_network_panel(4, LONG_L, seed=SEED)[0][3], device=dev)
     x_huge = torch.as_tensor(
         forced_network_panel(4, HUGE_L, seed=SEED)[0][3], device=dev)
     variant_rows, variant_errs = check_variant_kernels(

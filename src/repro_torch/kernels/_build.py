@@ -121,8 +121,11 @@ _SIGNATURES = {
     "lookup_launch": ("lookup", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P]),
     "pairwise_dist_launch": ("pairwise_dist", [_P, _I, _I, _I, _P, _P]),
     "topk_select_launch": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "topk_select32_launch": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P]),
     "topk_sizes_launch": ("topk",
-                          [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
+                          [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "topk_sizes32_launch": ("topk",
+                            [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "smap_gram_launch": ("smap_gram",
                          [_P, _I, _I, _P, _LL, _I, _P, _I, _I, _I, _I, _I,
                           _P, _I, _I, _P, _P, _P]),

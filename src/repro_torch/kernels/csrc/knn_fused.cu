@@ -47,7 +47,7 @@
 //     in time, at a cost of 2 groups) gives each row a threshold, the k-th
 //     of those 64 values; the walk appends only keys under it to a
 //     96-slot buffer per (warp, row) by one ballot, and a buffer past 64 is
-//     sorted and cut to its k first (compact96), which tightens the
+//     sorted and cut to its k first (wsel::compact), which tightens the
 //     threshold to its k-th key. Cut to 32 (as knn_multi_e), a buffer
 //     refilled past half on almost every later group and was sorted
 //     again; cut to k with room for 64 it is sorted a few times a row. A
@@ -105,29 +105,6 @@ __global__ void knn_fused_kernel(const float* __restrict__ x, int L, int Lp,
 
 constexpr int kSelWarps = 8;  // warps a block of the selection kernel
 constexpr int kBuf = 96;      // buffer slots per (warp, row)
-
-// Flush a buffer of cnt ≤ 96 keys: its 32 first, sorted, go back to slots
-// 0..31 (sorted in 32s and merged), and the k-th (k ≤ 32) is returned. Out
-// of line: one copy serves every row.
-__device__ __noinline__ wsel::Key compact96(float* bufv, int* bufi, int cnt,
-                                            int k) {
-  const int lane = threadIdx.x & 31;
-  float a = lane < cnt ? bufv[lane] : INFINITY;
-  int ai = lane < cnt ? bufi[lane] : kbest::kEmpty;
-  wsel::sort32(a, ai);
-  for (int h = 32; h < cnt; h += 32) {
-    float b = lane + h < cnt ? bufv[lane + h] : INFINITY;
-    int bi = lane + h < cnt ? bufi[lane + h] : kbest::kEmpty;
-    wsel::sort32(b, bi);
-    wsel::merge32(a, ai, b, bi);
-  }
-  __syncwarp();  // every lane has read the buffer
-  bufv[lane] = a;
-  bufi[lane] = ai;
-  __syncwarp();
-  return {__shfl_sync(kbest::kFull, a, k - 1),
-          __shfl_sync(kbest::kFull, ai, k - 1)};
-}
 
 __device__ __forceinline__ void cp16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -193,8 +170,8 @@ __device__ __forceinline__ void walk_group(
     cnt[r] += __popc(bal);
     if (cnt[r] > kBuf - 32) {
       __syncwarp();
-      const wsel::Key t = compact96(bufv + r * kBuf, bufi + r * kBuf, cnt[r],
-                                    k);
+      const wsel::Key t = wsel::compact(bufv + r * kBuf, bufi + r * kBuf,
+                                        cnt[r], k);
       tv[r] = t.v;
       ti[r] = t.i;
       cnt[r] = k;  // keys past the k-th can no longer be chosen
@@ -329,7 +306,7 @@ knn_fused_select_kernel(const float* __restrict__ xpad, int Lp, int E,
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     __syncwarp();
-    compact96(bufv + r * kBuf, bufi + r * kBuf, cnt[r], k);
+    wsel::compact(bufv + r * kBuf, bufi + r * kBuf, cnt[r], k);
   }
   if (S == 1) {  // each warp writes its own rows
 #pragma unroll

@@ -1,6 +1,7 @@
 // Warp-wide bitonic sorting, merging and buffered k-selection of
-// (value, index) keys for k ≤ 32: used by knn_multi_e.cu and by the walk
-// over new rows in knn_append.cu.
+// (value, index) keys for k ≤ 32. Included by knn_multi_e.cu (its
+// selection kernel), knn_append.cu (the walk over new rows), knn_fused.cu
+// (its selection kernel) and topk.cu (the selection kernels for k ≤ 32).
 //
 // Keys are ordered by (value ascending, index ascending), as kbest::before,
 // so a selection that keeps the k first keys of everything offered gives
@@ -14,10 +15,9 @@
 // against the first, the smaller of each pair, then the five half-cleaners
 // of a bitonic merge). The _v forms do the same for values alone.
 //
-// compact() is the buffer's flush: a per-(warp, level) buffer of up to 64
-// keys in shared memory, sorted in two halves and merged, leaves its 32
-// first keys sorted in its first 32 slots and returns the k-th as the new
-// threshold.
+// compact() is the buffer's flush: a per-(warp, level) buffer of up to 96
+// keys in shared memory, sorted in 32s and merged, leaves its 32 first keys
+// sorted in its first 32 slots and returns the k-th as the new threshold.
 #pragma once
 
 #include "kbest.cuh"
@@ -98,18 +98,18 @@ __device__ __forceinline__ float kth_of_64(float a, float b, int k) {
   return __shfl_sync(kbest::kFull, a, k - 1);
 }
 
-// Flush a buffer of cnt ≤ 64 keys (bufv/bufi, written by any lane of the
+// Flush a buffer of cnt ≤ 96 keys (bufv/bufi, written by any lane of the
 // warp before a __syncwarp): its 32 first keys, sorted, go back to slots
-// 0..31, and the k-th (k ≤ 32) is returned. Out of line: one copy serves
-// every level.
+// 0..31 (slots past cnt as empty keys), and the k-th (k ≤ 32) is returned.
+// Out of line: one copy serves every level.
 __device__ __noinline__ Key compact(float* bufv, int* bufi, int cnt, int k) {
   const int lane = threadIdx.x & 31;
   float a = lane < cnt ? bufv[lane] : INFINITY;
   int ai = lane < cnt ? bufi[lane] : kbest::kEmpty;
-  float b = lane + 32 < cnt ? bufv[lane + 32] : INFINITY;
-  int bi = lane + 32 < cnt ? bufi[lane + 32] : kbest::kEmpty;
   sort32(a, ai);
-  if (cnt > 32) {
+  for (int h = 32; h < cnt; h += 32) {
+    float b = lane + h < cnt ? bufv[lane + h] : INFINITY;
+    int bi = lane + h < cnt ? bufi[lane + h] : kbest::kEmpty;
     sort32(b, bi);
     merge32(a, ai, b, bi);
   }

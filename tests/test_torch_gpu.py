@@ -132,6 +132,8 @@ def test_pairwise_dist_kernel_equals_plain(E, tau):
 @pytest.mark.parametrize("k,max_idx,exclude_self", [
     (4, None, True), (70, None, True), (70, 30, True), (9, 120, False),
     (1, 0, True),
+    (32, None, True), (33, None, True),          # the two designs' boundary
+    (32, 20, False), (21, 300, True),
 ])
 def test_topk_select_kernel_equals_plain(k, max_idx, exclude_self):
     from repro_torch.kernels import pairwise_dist, topk
@@ -148,6 +150,11 @@ def test_topk_select_kernel_equals_plain(k, max_idx, exclude_self):
     (70, (2, 40, 40, 200, 10_000), True),        # caps < k, equal, past Lp
     (5, (150,), True),                           # a single cap
     (3, (0, 1, 95, 390), False),
+    (32, (10, 31, 200, 395), True),              # the two designs'
+    (33, (10, 31, 200, 395), True),              # boundary
+    (4, (0,), True),                             # a single cap of 0
+    (6, (100, 101, 101, 103), True),             # inside one warp's span
+    (21, (0, 3, 20, 21, 600), False),
 ])
 def test_topk_select_sizes_kernel_equals_plain(k, caps, exclude_self):
     from repro_torch.kernels import pairwise_dist, topk
@@ -155,6 +162,74 @@ def test_topk_select_sizes_kernel_equals_plain(k, caps, exclude_self):
     got = topk.topk_select_sizes(D, k=k, max_idxs=caps,
                                  exclude_self=exclude_self)
     want = topk.plain_sizes(D, k=k, max_idxs=caps, exclude_self=exclude_self)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("L", [515, 549, 1061])
+def test_topk_selection_kernels_equal_plain_across_chunks(L):
+    """Rows of one chunk and a few columns (514, 548) and of three chunks:
+    the selection kernels against the plain versions and the insertion
+    kernels, caps on and beside the chunks' edges, +inf values."""
+    from repro_torch.kernels import pairwise_dist, topk
+    x = _cuda_panel(N=2, L=L)[0]
+    D = pairwise_dist.plain(x, E=2, tau=1)
+    Lp = D.shape[0]
+    D[5, 40:60] = float("inf")
+    for k, mx in ((4, None), (21, 10), (32, Lp - 2)):
+        want = topk.plain_select(D, k=k, max_idx=mx)
+        for got in (topk.topk_select(D, k=k, max_idx=mx),
+                    topk._launch_select(D, "insert", k=k, max_idx=mx)):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    for k, caps in ((4, (0, 7, 49, 511, 512, 513, Lp - 1)),
+                    (21, (20, 64, 500, 10_000))):
+        want = topk.plain_sizes(D, k=k, max_idxs=caps)
+        for got in (topk.topk_select_sizes(D, k=k, max_idxs=caps),
+                    topk._launch_sizes(D, "insert", k=k, max_idxs=caps)):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_topk_designs_agree_at_the_paths_shapes():
+    """cache=False simplex's launch (Lp = 1598, k = 4, cap Lp - 2), the
+    convergence sweep's (its seven caps) and the variants path's at
+    L = 10,000 (E = 20, k = 21): the selection kernels bit-equal to the
+    kept insertion kernels and to the plain versions."""
+    from repro_torch.core.ccm import normalize_lib_sizes
+    from repro_torch.kernels import pairwise_dist, topk
+    X = _cuda_panel(N=2, L=1600)
+    D = pairwise_dist.pairwise_distances(X[0], E=3, tau=1)
+    Lp = D.shape[0]
+    sel = topk.topk_select(D, k=4, max_idx=Lp - 2)
+    ins = topk._launch_select(D, "insert", k=4, max_idx=Lp - 2)
+    want = topk.plain_select(D, k=4, max_idx=Lp - 2)
+    for a, b, c in zip(sel, ins, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    caps, _ = normalize_lib_sizes((50, 100, 200, 400, 800, 1200, 1500),
+                                  Lp=Lp)
+    assert topk.route(4, len(caps)) == "select"
+    sel = topk.topk_select_sizes(D, k=4, max_idxs=caps)
+    ins = topk._launch_sizes(D, "insert", k=4, max_idxs=caps)
+    want = topk.plain_sizes(D, k=4, max_idxs=caps)
+    for a, b, c in zip(sel, ins, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    x = torch.as_tensor(ts.forced_network_panel(4, 10_000, seed=0)[0][3],
+                        device="cuda")
+    D = pairwise_dist.pairwise_distances(x, E=20, tau=1)
+    sel = topk.topk_select(D, k=21)
+    ins = topk._launch_select(D, "insert", k=21)
+    want = topk.plain_select(D, k=21)
+    for a, b, c in zip(sel, ins, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_topk_sizes_takes_more_caps_than_go_by_value():
+    from repro_torch.kernels import pairwise_dist, topk
+    D = pairwise_dist.plain(_ties_series(), E=3, tau=2)
+    caps = tuple(range(0, 390, 5))  # 78 caps: the insertion kernel
+    assert topk.route(4, len(caps)) == "insert"
+    got = topk.topk_select_sizes(D, k=4, max_idxs=caps)
+    want = topk.plain_sizes(D, k=4, max_idxs=caps)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
