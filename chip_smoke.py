@@ -16,7 +16,14 @@ phase passed; any failure exits nonzero. Phases:
    call where one computes the same function, the kernel's device time
    from the profiler (``device_ms``: the event loop of a small kernel
    measures the host's launch cost), and the least time the card could
-   take. The rows of ``knn_multi_e`` and ``smap_gram`` also carry the
+   take. ``pairwise_distances`` also carries the card's write floor,
+   ``D.fill_(1.0)`` on its (Lp, Lp) matrix, beside its own device time in
+   three L2 states (``floor_device_ms``; ``warm_…``, ``cold_…``: one
+   output block rewritten, and after a 128 MB scratch write), and its
+   L = 10,000, E = 20 launch (``path_device_ms``, bit-equal there);
+   ``lookup`` the launch floor ``out.zero_()`` (``floor_device_ms``) and
+   ``embedding_bag`` as its library call. The rows of ``knn_multi_e`` and
+   ``smap_gram`` also carry the
    CUDA-event time of one launch beside the profiler's; ``knn_multi_e``,
    ``knn_batch`` and ``knn_append`` are each held at both designs' edge
    shapes (the new one, and the insertion kernel each keeps for k > 32),
@@ -242,7 +249,7 @@ def device_profile(torch, fn) -> dict:
     for a, b in sorted(spans):
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:10]
     return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
             "idle_share": (1.0 - busy_us * 1e-6 / wall) if spans else None,
             "kernels": {k: {"launches": n, "mean_us": us / n}
@@ -284,6 +291,31 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     fn()
     return device_profile(torch, lambda: [fn() for _ in range(reps)])[
         "device_busy_s"] * 1e3 / reps
+
+
+def named_device_ms(torch, fn, match: str, reps: int = 10,
+                    evict=None) -> float:
+    """Mean device ms of the kernels whose lower-case name holds ``match``
+    over ``reps`` calls of ``fn``, each result dropped before the next call
+    (so the caching allocator hands the same block back: its lines stay in
+    L2), each call after ``evict()`` when given. Other kernels, such as
+    the eviction's, are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if evict is not None:
+                evict()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and match in e.name.lower()]
+    if not us:
+        fail(f"the profiler listed no kernel named like {match!r}")
+    return statistics.mean(us) * 1e-3
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
@@ -537,11 +569,15 @@ def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
     # kernel and the insertion kernel, each against the plain version.
     xs = X[5, :300].clone()
     xs[150:190] = xs[10:50]  # a duplicated stretch: exact ties
-    for E, tau in ((1, 1), (3, 2), (20, 1)):
-        if not torch.equal(pairwise_dist.pairwise_distances(xs, E=E, tau=tau),
-                           pairwise_dist.plain(xs, E=E, tau=tau)):
-            fail(f"pairwise_dist differs from its plain version at E={E}, "
-                 f"tau={tau}")
+    # Lp mod 4 = 0, 0, 1, 2, 3, 0, 1; Lp below a tile (48, 61, 21) and 1.
+    for n, E, tau in ((300, 1, 1), (300, 3, 2), (300, 20, 1), (300, 3, 1),
+                      (300, 2, 1), (50, 3, 1), (61, 1, 1), (3, 3, 1),
+                      (40, 20, 1)):
+        xn = xs[:n]
+        if not torch.equal(pairwise_dist.pairwise_distances(xn, E=E, tau=tau),
+                           pairwise_dist.plain(xn, E=E, tau=tau)):
+            fail(f"pairwise_dist differs from its plain version at L={n}, "
+                 f"E={E}, tau={tau}")
     Ds = pairwise_dist.plain(xs, E=3, tau=2)
     Ds[7, 20:90] = float("inf")
     for k, mx in ((4, None), (70, None), (70, 30), (1, 0), (32, None),
@@ -562,12 +598,17 @@ def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
                    want, f"topk_select_sizes' insertion kernel at k={k}, "
                    f"caps={caps}")
     Ds = pairwise_dist.plain(xs, E=3, tau=2)
-    ds, is_ = topk.plain_select(Ds, k=21, max_idx=250)
-    ws = ref.make_weights(ds)
-    is_[::5, -1] = -1  # invalid slots, as derived tables carry them
-    if not torch.equal(lookup.lookup(X[:7, :300], is_, ws, offset=4),
-                       lookup.plain_lookup(X[:7, :300], is_, ws, offset=4)):
-        fail("lookup differs from its plain version (small)")
+    # k 21 and 33 (word loads of the table), 4 and 8 (16-byte loads), a
+    # series of 14,400 points, N 7 and 2.
+    for k, Y in ((21, X[:7, :300]), (33, X[:7, :300]), (8, X[:7, :300]),
+                 (4, X[:2].repeat(1, 9))):
+        ds, is_ = topk.plain_select(Ds, k=k, max_idx=250)
+        ws = ref.make_weights(ds)
+        is_[::5, -1] = -1  # invalid slots, as derived tables carry them
+        if not torch.equal(lookup.lookup(Y, is_, ws, offset=4),
+                           lookup.plain_lookup(Y, is_, ws, offset=4)):
+            fail(f"lookup differs from its plain version (small, k={k}, "
+                 f"L={Y.shape[1]})")
 
     # The path's shapes. max_abs_err is 0: equality is checked above.
     rows_out = []
@@ -587,11 +628,32 @@ def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
     if not torch.equal(D, pairwise_dist.plain(x, E=E, tau=1)):
         fail("pairwise_dist differs from its plain version at L=1600, E=3")
     Z = ref.delay_embed(x, E, 1).contiguous()
+    pfn = lambda: pairwise_dist.pairwise_distances(x, E=E)  # noqa: E731
     row("pairwise_distances", "pairwise_dist.cu", "pairwise_dist.py:38",
-        lambda: pairwise_dist.pairwise_distances(x, E=E),
-        lambda: pairwise_dist.plain(x, E=E, tau=1),
+        pfn, lambda: pairwise_dist.plain(x, E=E, tau=1),
         bound_ms(LENGTH * 4 + Lp * Lp * 4, 3.0 * E * Lp * Lp),
         lambda: torch.cdist(Z, Z))
+    pw_row = rows_out[-1]
+    del Z
+    # The card's write floor, D.fill_(1.0) on an (Lp, Lp) float32 matrix,
+    # in three L2 states, each beside the kernel's: the table's (20 fresh
+    # outputs held, 204 MB), warm (one output block written again and
+    # again, as the per-series simplex path reuses it) and cold (after a
+    # 128 MB scratch write that evicts the 50 MB L2).
+    Df = torch.empty((Lp, Lp), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(32 << 20, dtype=torch.float32, device=x.device)
+    ffn = lambda: Df.fill_(1.0)  # noqa: E731
+    evict = lambda: scratch.add_(1.0)  # noqa: E731
+    pw_row.update(
+        floor_device_ms=device_ms(torch, lambda: torch.empty(
+            (Lp, Lp), dtype=torch.float32, device=x.device).fill_(1.0)),
+        warm_device_ms=named_device_ms(torch, pfn, "pairwise_dist"),
+        warm_floor_device_ms=named_device_ms(torch, ffn, "fill"),
+        cold_device_ms=named_device_ms(torch, pfn, "pairwise_dist",
+                                       evict=evict),
+        cold_floor_device_ms=named_device_ms(torch, ffn, "fill",
+                                             evict=evict))
+    del Df, scratch
 
     mx = Lp - 2  # simplex_predict's cap at Tp = 1
     dk, ik = topk.topk_select(D, k=k, max_idx=mx)
@@ -613,6 +675,15 @@ def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
     E_l, k_l = E_MAX, E_MAX + 1
     D_l = pairwise_dist.pairwise_distances(x_long, E=E_l, tau=1)
     Lp_l = D_l.shape[0]
+    if not torch.equal(D_l, pairwise_dist.plain(x_long, E=E_l, tau=1)):
+        fail(f"pairwise_dist differs from its plain version at "
+             f"L={x_long.shape[0]}, E={E_l}")
+    pw_row.update(
+        path_L=x_long.shape[0], path_E=E_l,
+        path_device_ms=device_ms(torch, lambda: pairwise_dist.
+                                 pairwise_distances(x_long, E=E_l), 5),
+        path_bound_ms=bound_ms(x_long.shape[0] * 4 + Lp_l * Lp_l * 4,
+                               3.0 * E_l * Lp_l * Lp_l)[0])
     got = topk.topk_select(D_l, k=k_l)
     equal_pair(got, topk.plain_select(D_l, k=k_l),
                f"topk_select at L={x_long.shape[0]}, k={k_l}")
@@ -650,10 +721,21 @@ def check_slice_kernels(torch, X, x_long, pairwise_dist, topk, lookup, ref,
     if not torch.equal(lookup.lookup(Y, ir, wr, offset=off),
                        lookup.plain_lookup(Y, ir, wr, offset=off)):
         fail("lookup differs from its plain version at the simplex shape")
+    # The library's one call for the same sums: the (rows, N) bags of
+    # Y's transposed rows at the table's indices, weighted (every index
+    # on the path is valid).
+    il, Yo = ir.long(), Y.t()[off:]
+    bag = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        il, Yo, per_sample_weights=wr, mode="sum")
     row("lookup", "lookup.cu", "lookup.py:46",
         lambda: lookup.lookup(Y, ir, wr, offset=off),
         lambda: lookup.plain_lookup(Y, ir, wr, offset=off),
-        bound_ms(LENGTH * 4 + rows * k * 8 + rows * 4, 2.0 * rows * k))
+        bound_ms(LENGTH * 4 + rows * k * 8 + rows * 4, 2.0 * rows * k), bag)
+    out = torch.empty((1, rows), dtype=torch.float32, device=x.device)
+    rows_out[-1].update(
+        floor_device_ms=device_ms(torch, out.zero_),
+        library_max_abs_err=float((bag().t() - lookup.plain_lookup(
+            Y, ir, wr, offset=off)).abs().max()))
     return rows_out
 
 

@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels under ``csrc/``.
+"""Build, load and launch the CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
@@ -20,6 +20,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -119,7 +121,7 @@ _SIGNATURES = {
                               [_P, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I,
                                _I, _I, _I, _I, _P, _P, _P]),
     "lookup_launch": ("lookup", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P]),
-    "pairwise_dist_launch": ("pairwise_dist", [_P, _I, _I, _I, _P, _P]),
+    "pairwise_dist_launch": ("pairwise_dist", [_P, _I, _I, _I, _I, _P, _P]),
     "topk_select_launch": ("topk", [_P, _I, _I, _I, _I, _I, _P, _P, _P]),
     "topk_select32_launch": ("topk", [_P, _I, _I, _I, _I, _P, _P, _P]),
     "topk_sizes_launch": ("topk",
@@ -164,3 +166,24 @@ def check(err: int, name: str) -> None:
     """Raise if a launch function returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def launch(device: torch.device, name: str, *args) -> None:
+    """Call launch function ``name`` with ``args`` and the current stream
+    of ``device`` last; raises if the launch failed. The device is made
+    current only when it is not already."""
+    fn = entry(name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, name)
+
+
+def as_contiguous(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor: ``t`` itself when it is one
+    already (no copy, no dispatch)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()

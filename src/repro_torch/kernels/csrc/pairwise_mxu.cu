@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem_grant.cuh"
+
 namespace {
 
 constexpr int kTile = 64;
@@ -88,6 +90,8 @@ __global__ void pairwise_mxu_kernel(const float* __restrict__ xc, int L,
   }
 }
 
+SmemGrant g_mxu;
+
 }  // namespace
 
 // xc: (L,) float32, the mean-centered series. D: (Lp, Lp) float32,
@@ -98,9 +102,8 @@ extern "C" int pairwise_mxu_launch(const float* xc, int L, int E, int tau,
   if (Lp <= 0 || E < 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
       (2 * (size_t)(kTile + (E - 1) * tau) + 2 * kTile) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pairwise_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err =
+      grant_smem((const void*)pairwise_mxu_kernel, g_mxu, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lp + kTile - 1) / kTile;
   pairwise_mxu_kernel<<<dim3(tiles, tiles), dim3(kSide, kSide), smem,

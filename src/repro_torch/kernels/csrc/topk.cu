@@ -73,9 +73,8 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "kbest.cuh"
+#include "smem_grant.cuh"
 #include "warp_select.cuh"
 
 namespace {
@@ -89,29 +88,6 @@ __device__ __forceinline__ float root(float v) {
 struct Caps {
   int c[kbest::kMaxLevels];
 };
-
-// Raise a kernel's dynamic shared-memory ceiling to `smem` bytes on the
-// current device only when no earlier launch has: the attribute stays set
-// per (kernel, device), so cudaFuncSetAttribute runs once per kernel and
-// size instead of at every launch, and never within the default 48 KB.
-struct SmemGrant {
-  std::mutex m;
-  size_t granted[64] = {};
-};
-
-cudaError_t grant_smem(const void* kernel, SmemGrant& g, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(g.m);
-  if (dev < 64 && g.granted[dev] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err == cudaSuccess && dev < 64) g.granted[dev] = smem;
-  return err;
-}
 
 // ------------------------------------------------ the insertion kernels
 

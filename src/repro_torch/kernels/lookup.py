@@ -5,7 +5,9 @@ batch of tables.
 ``_kernel_lookup``; paper Algorithm 3): (N, rows) predictions from one
 (rows, k) table, bit-equal to its plain version ``plain_lookup``
 (``kernels.ref.lookup``, a fixed-order k-sum). Design and bound:
-``csrc/lookup.cu``.
+``csrc/lookup.cu`` (64 rows a block, a row's slots four at a time: one
+16-byte load of the indices and one of the weights, then the four
+gathers in flight together; straight-line code for k ≤ 4).
 
 ``lookup_rho`` ports ``repro/kernels/lookup.py::lookup_rho`` (Pallas
 ``_kernel_rho`` with ``_gather_tile``). The TPU wrapper takes one
@@ -236,15 +238,12 @@ def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((N, rows), dtype=torch.float32, device=Y.device)
     if N == 0 or rows == 0:
         return out
-    Yc = Y.float().contiguous()
-    idx_c = idx.to(torch.int32).contiguous()
-    w_c = w.float().contiguous()
-    fn = _build.entry("lookup_launch")
-    with torch.cuda.device(Y.device):
-        err = fn(Yc.data_ptr(), L, N, idx_c.data_ptr(), w_c.data_ptr(), rows,
-                 k, int(offset), out.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "lookup")
+    Y = _build.as_contiguous(Y, torch.float32)
+    idx = _build.as_contiguous(idx, torch.int32)
+    w = _build.as_contiguous(w, torch.float32)
+    _build.launch(Y.device, "lookup_launch", Y.data_ptr(), L, N,
+                  idx.data_ptr(), w.data_ptr(), rows, k, int(offset),
+                  out.data_ptr())
     lookup.launches += 1
     return out
 

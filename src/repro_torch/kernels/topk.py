@@ -57,9 +57,7 @@ def _check(D: torch.Tensor, k: int) -> tuple[torch.Tensor, int]:
     Lp = D.shape[0]
     if not 1 <= k <= Lp:
         raise ValueError(f"k={k} must lie in [1, {Lp}] (the row length)")
-    if D.dtype != torch.float32 or not D.is_contiguous():
-        D = D.float().contiguous()
-    return D, Lp
+    return _build.as_contiguous(D, torch.float32), Lp
 
 
 def _insert_warps(k: int) -> int:
@@ -68,18 +66,6 @@ def _insert_warps(k: int) -> int:
                          f"{K_LIMIT}: one warp's list passes a block's "
                          f"shared memory ({SMEM_MAX} B)")
     return min(WARPS_PER_BLOCK, SMEM_MAX // (8 * k))
-
-
-def _run(D: torch.Tensor, name: str, *args) -> None:
-    """Call launch function ``name`` with ``args``, the current stream of
-    D's device last; raises if the launch failed."""
-    fn = _build.entry(name)
-    if D.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(D.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, name)
 
 
 def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
@@ -128,12 +114,13 @@ def _launch_select(D, kind, *, k, exclude_self=True, max_idx=None):
         if k > SELECT_MAX:
             raise ValueError(f"the selection kernel takes k <= {SELECT_MAX},"
                              f" got k={k}")
-        _run(D, "topk_select32_launch", D.data_ptr(), Lp, k, max(mx, -1),
-             int(exclude_self), out_d.data_ptr(), out_i.data_ptr())
+        _build.launch(D.device, "topk_select32_launch", D.data_ptr(), Lp, k,
+                      max(mx, -1), int(exclude_self), out_d.data_ptr(),
+                      out_i.data_ptr())
     else:
-        _run(D, "topk_select_launch", D.data_ptr(), Lp, k, max(mx, -1),
-             int(exclude_self), _insert_warps(k), out_d.data_ptr(),
-             out_i.data_ptr())
+        _build.launch(D.device, "topk_select_launch", D.data_ptr(), Lp, k,
+                      max(mx, -1), int(exclude_self), _insert_warps(k),
+                      out_d.data_ptr(), out_i.data_ptr())
     return out_d, out_i
 
 
@@ -161,16 +148,17 @@ def _launch_sizes(D, kind, *, k, max_idxs, exclude_self=True):
             raise ValueError(f"the selection kernel takes k <= {SELECT_MAX} "
                              f"and at most {MAX_LEVELS} caps, got k={k}, "
                              f"{S} caps")
-        _run(D, "topk_sizes32_launch", D.data_ptr(), Lp, k, caps_h, S,
-             int(exclude_self), out_d.data_ptr(), out_i.data_ptr())
+        _build.launch(D.device, "topk_sizes32_launch", D.data_ptr(), Lp, k,
+                      caps_h, S, int(exclude_self), out_d.data_ptr(),
+                      out_i.data_ptr())
     else:
         caps_d = None
         if S > MAX_LEVELS:
             caps_d = torch.tensor(caps, dtype=torch.int32).to(D.device)
-        _run(D, "topk_sizes_launch", D.data_ptr(), Lp, k, caps_h,
-             None if caps_d is None else caps_d.data_ptr(), S,
-             int(exclude_self), _insert_warps(k), out_d.data_ptr(),
-             out_i.data_ptr())
+        _build.launch(D.device, "topk_sizes_launch", D.data_ptr(), Lp, k,
+                      caps_h, None if caps_d is None else caps_d.data_ptr(),
+                      S, int(exclude_self), _insert_warps(k),
+                      out_d.data_ptr(), out_i.data_ptr())
     return out_d, out_i
 
 

@@ -116,17 +116,30 @@ def _ties_series(L=400, seed=1):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     x = np.random.default_rng(seed).standard_normal(L).astype(np.float32)
-    x[200:260] = x[20:80]
+    if L >= 260:
+        x[200:260] = x[20:80]
+    else:
+        x[L - L // 4:] = x[:L // 4]
     x[::7] = 0.25
     return torch.as_tensor(x, device="cuda")
 
 
-@pytest.mark.parametrize("E,tau", [(1, 1), (3, 1), (4, 2), (20, 1)])
-def test_pairwise_dist_kernel_equals_plain(E, tau):
+@pytest.mark.parametrize("L,E,tau", [
+    (400, 1, 1), (400, 3, 1), (400, 4, 2), (400, 20, 1),
+    (401, 3, 1), (403, 3, 1), (404, 1, 1),       # Lp % 4: 3, 1, 0
+    (50, 3, 1), (61, 1, 1), (3, 3, 1), (40, 20, 1),  # Lp < 64, Lp = 1
+    (1600, 20, 1), (10_000, 20, 1),              # the variants path's
+], ids=["E1", "E3", "E4-tau2", "E20", "Lp399", "Lp401", "Lp404", "Lp48",
+        "Lp61", "Lp1", "Lp21-E20", "L1600-E20", "L10000-E20"])
+def test_pairwise_dist_kernel_equals_plain(L, E, tau):
     from repro_torch.kernels import pairwise_dist
-    x = _ties_series()
+    x = _ties_series(L)
+    want = pairwise_dist.plain(x, E=E, tau=tau)
     assert torch.equal(pairwise_dist.pairwise_distances(x, E=E, tau=tau),
-                       pairwise_dist.plain(x, E=E, tau=tau))
+                       want)
+    for kind in ("vector", "word"):  # both designs at every shape
+        assert torch.equal(pairwise_dist._launch(x, kind, E=E, tau=tau),
+                           want)
 
 
 @pytest.mark.parametrize("k,max_idx,exclude_self", [
@@ -233,16 +246,38 @@ def test_topk_sizes_takes_more_caps_than_go_by_value():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("k", [1, 4, 21])
-def test_lookup_kernel_equals_plain(k):
+@pytest.mark.parametrize("N,L,k", [
+    (12, 400, 1), (12, 400, 4), (12, 400, 21), (12, 400, 33), (12, 400, 8),
+    (1, 1600, 4),                                # the simplex path's shape
+    (2, 13_000, 4),                              # past a 48 KB series
+], ids=["k1", "k4", "k21", "k33", "k8", "simplex", "L13000"])
+def test_lookup_kernel_equals_plain(N, L, k):
     from repro_torch.kernels import lookup, ref, topk
-    X = _cuda_panel()
+    X = _cuda_panel(N=max(N, 2), L=L)[:N]  # the panel forces from 2 series
     D = ref.pairwise_distances(X[0], E=3, tau=1)
-    d, i = topk.plain_select(D, k=k, max_idx=300)
-    w = ref.make_weights(d)
-    i = i.clone()
+    Lp = D.shape[0]
+    # The simplex path's table (cap Lp - 2, rows Lp - 1), else cap 300.
+    cap, rows = (Lp - 2, Lp - 1) if N == 1 else (300, Lp)
+    d, i = topk.plain_select(D, k=k, max_idx=cap)
+    w = ref.make_weights(d)[:rows]
+    i = i[:rows].clone()
     i[::5, -1] = -1  # invalid slots as the master derivation leaves them
     got = lookup.lookup(X, i, w, offset=3)
+    assert torch.equal(got, lookup.plain_lookup(X, i, w, offset=3))
+
+
+def test_lookup_kernel_takes_a_table_off_16_byte_alignment():
+    from repro_torch.kernels import lookup, ref, topk
+    X = _cuda_panel()
+    d, i = topk.plain_select(ref.pairwise_distances(X[0], E=3, tau=1), k=4)
+    w = ref.make_weights(d)
+    # The same table one word into a buffer: rows 4-byte aligned only.
+    ib = torch.empty(i.numel() + 1, dtype=torch.int32, device="cuda")
+    wb = torch.empty(w.numel() + 1, dtype=torch.float32, device="cuda")
+    ib[1:] = i.reshape(-1)
+    wb[1:] = w.reshape(-1)
+    got = lookup.lookup(X, ib[1:].view(i.shape), wb[1:].view(w.shape),
+                        offset=3)
     assert torch.equal(got, lookup.plain_lookup(X, i, w, offset=3))
 
 
