@@ -98,7 +98,22 @@ phase passed; any failure exits nonzero. Phases:
    20 and over one series at L = 10,000 (E = 20): fused bit-equal to the
    two-kernel path, mxu's neighbour sets equal vpu's away from near-ties,
    and at L = 10,000 the fused call's device memory holds no (Lp, Lp)
-   buffer (the two-kernel call's is shown beside it).
+   buffer (the two-kernel call's is shown beside it);
+9. journal path — ``xmap(run_dir=...)`` under temporary run dirs:
+   ``EDM(panel).optimal_E()`` then the journaled xmap (master route),
+   ``EDM(panel, E=3)``'s (direct route) and its ``method="smap"`` xmap,
+   each bit-equal to the plain call, a finished journal launching nothing,
+   ``report.json`` complete, ``events.jsonl`` through
+   ``repro_torch.telemetry.schema``, ``inspect_run`` at 100 %; a child
+   process at ``batch_libs=26`` SIGTERM'd at its second launch (exit 17,
+   journal "preempted"), a second child resuming at ``batch_libs=40``
+   with launches for the remaining rows only, bit-identical; a child
+   whose allocator cap (``set_per_process_memory_fraction``) the S-Map
+   xmap's first batch cannot fit — its ``torch.cuda.OutOfMemoryError``
+   halves B (a ``halve`` entry, no ``unclassified``), bit-identical;
+   ``core.ccm_group`` and ``plan.ccm_group_from_master`` on 8 libraries
+   bit-equal to the batched engines; journaled against plain wall times
+   (``RUNS`` turns each) and the snapshots each run writes.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -142,6 +157,75 @@ VARIANT_ES = (3, 20)      # the kNN variants path: E (k = E + 1) ...
 LONG_L = 10_000           # ... and one series at kEDM's scale (E = 20)
 HUGE_L = 65_536           # the fused kNN past its old length ceiling ...
 HUGE_ROWS = 256           # ... checked on this many sampled rows
+JOURNAL_B = 26            # the preempted child's library batch ...
+JOURNAL_RESUME_B = 40     # ... and its resume's (B-invariance on the card)
+# The OOM child's memory cap: the bytes held before the S-Map xmap plus
+# this share of the uncapped run's peak above them (its first B = N
+# launch cannot be held; half of it can).
+OOM_CAP_SHARE = 0.6
+CCM_GROUP_LIBS = 8        # libraries of the per-series ccm_group check
+CHILD_TIMEOUT_S = 300
+
+# A child process of the journal phase: ``kill`` runs the direct journaled
+# xmap at B and delivers SIGTERM to itself at its second engine launch
+# (tile 0 still in flight), as examples/resume_smoke.py does; ``resume``
+# reruns it; ``oom`` caps the allocator below the S-Map xmap's first batch
+# and runs it journaled. Prints its kernel launches and wall time.
+JOURNAL_CHILD = r"""
+import json, os, signal, sys, time
+import numpy as np
+import torch
+from repro_torch.core import ccm
+from repro_torch.data.timeseries import forced_network_panel
+from repro_torch.edm import EDM
+from repro_torch.kernels import knn_batch, lookup, smap_gram
+
+mode, run_dir = sys.argv[1], sys.argv[2]
+N, L, seed, E, B = (int(a) for a in sys.argv[3:8])
+panel = forced_network_panel(N, L, seed=seed)[0]
+wrappers = {"knn_batch": knn_batch.all_knn_batch,
+            "lookup_rho": lookup.lookup_rho, "smap_gram": smap_gram.smap_gram}
+out = {}
+if mode == "oom":
+    want = EDM(panel, E=E).xmap(method="smap")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    EDM(panel, E=E).xmap(method="smap")
+    peak = torch.cuda.max_memory_allocated()
+    cap = base + float(sys.argv[8]) * (peak - base)
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rho = EDM(panel, E=E).xmap(method="smap", run_dir=run_dir)
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, base_bytes=base,
+               peak_bytes=peak, cap_bytes=cap, total_bytes=total,
+               equal_uncapped=bool(np.array_equal(rho, want)))
+    torch.cuda.set_per_process_memory_fraction(1.0)
+else:
+    orig = ccm._group_step
+    n = {"launches": 0}
+    def wrapped(*a, **k):
+        n["launches"] += 1
+        if mode == "kill" and n["launches"] == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return orig(*a, **k)
+    ccm._group_step = wrapped
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rho = EDM(panel, E=E, batch_libs=B).xmap(run_dir=run_dir)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+np.save(os.path.join(run_dir, mode + ".npy"), rho)
+out["launches"] = {n: fn.launches for n, fn in wrappers.items()}
+print(json.dumps({"journal_child": out}))
+"""
 
 
 def smap_rho_tol(theta: float) -> float:
@@ -1316,6 +1400,263 @@ def run_variants_path(torch, X, x_long, core, ops, pairwise_dist, ref,
             "long_distance_matrix_bytes": 4 * Lp * Lp}, launches
 
 
+def journal_child(root, mode, run_dir, B, extra=()):
+    """Run ``JOURNAL_CHILD`` in a fresh process → (return code, its record
+    or None, its stderr's tail). It loads the kernels the parent built."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run(
+        [sys.executable, "-c", JOURNAL_CHILD, mode, run_dir,
+         *(str(v) for v in (N_SERIES, LENGTH, SEED, E_FIXED, B)),
+         *(str(v) for v in extra)],
+        env=env, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    rec = None
+    for line in res.stdout.splitlines():
+        if line.startswith('{"journal_child"'):
+            rec = json.loads(line)["journal_child"]
+    return res.returncode, rec, res.stderr[-3000:]
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def journal_breakdown(torch, fn):
+    """Host seconds and calls of the journal's parts in one call of
+    ``fn``: each part's function wrapped with a host clock (nested parts
+    counted in their callers too: ``_snapshot`` holds ``save`` and
+    ``write_report``, which holds ``render_prom``)."""
+    from repro_torch import telemetry
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import Heartbeat
+    from repro_torch.edm import runner
+
+    parts = [(runner, "run_key"), (runner.MatrixRunner, "__init__"),
+             (runner.MatrixRunner, "_snapshot"), (CheckpointManager, "save"),
+             (runner.MatrixRunner, "write_report"), (telemetry, "render_prom"),
+             (Heartbeat, "beat"), (telemetry.JsonlSink, "emit"),
+             (runner.MatrixRunner, "finalize")]
+    acc = {attr: [0.0, 0] for _, attr in parts}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in parts]
+
+    def timed(attr, orig):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                acc[attr][0] += time.perf_counter() - t0
+                acc[attr][1] += 1
+        return wrapper
+
+    for owner, attr, orig in saved:
+        setattr(owner, attr, timed(attr, orig))
+    try:
+        _, total = host_s(torch, fn)
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+    return {"total_s": total, **{a: {"s": v[0], "calls": v[1]}
+                                 for a, v in acc.items()}}
+
+
+def run_journal_path(torch, np, panel, root, X, EDM, core, reset_counts,
+                     counts, xm, xm3, xs3):
+    """The journaled ``xmap(run_dir=)`` at Fish1_Normo's shape, under
+    temporary run dirs: both simplex routes and the fixed-E S-Map route
+    bit-equal to the plain calls, a finished journal relaunching nothing,
+    its artifacts through the schema and the inspector; a child preempted
+    by SIGTERM (exit 17) and resumed by another at a different B; a child
+    whose allocator cap the first batch cannot fit (a real
+    ``torch.cuda.OutOfMemoryError``: B halves); ``ccm_group`` and
+    ``ccm_group_from_master`` on 8 libraries against the batched engines;
+    then the journaled against the plain wall times and the snapshots a
+    run writes. Returns (record, the path's launches)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.edm import PREEMPTED_EXIT
+    from repro_torch.edm import inspect as edm_inspect
+    from repro_torch.edm.plan import (ccm_group_from_master,
+                                      ccm_group_from_master_batched)
+    from repro_torch.telemetry import schema
+
+    saves = {"n": 0}
+    orig_save = CheckpointManager.save
+
+    def counting_save(self, step, state):
+        saves["n"] += 1
+        return orig_save(self, step, state)
+
+    def journaled(fn, run_dir):
+        saves["n"] = 0
+        out, sec = host_s(torch, lambda: fn(run_dir))
+        return out, sec, saves["n"]
+
+    CheckpointManager.save = counting_save
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    rec, runs = {}, iter(range(10**6))
+
+    def fresh():
+        return os.path.join(tmp, f"run{next(runs)}")
+
+    try:
+        # Master route: optimal_E, then the journaled xmap, then again.
+        reset_counts()
+        js = EDM(panel, E_max=E_MAX)
+        js.optimal_E()
+        run_a = fresh()
+        ja, t_ja, snaps_a = journaled(lambda d: js.xmap(run_dir=d), run_a)
+        if not np.array_equal(ja, xm):
+            fail("journaled master-route xmap differs from the plain xmap")
+        master_launches = {n: c for n, c in counts().items() if c}
+        before = counts()
+        again = js.xmap(run_dir=run_a)
+        relaunched = {n: c - before[n] for n, c in counts().items()
+                      if c != before[n]}
+        if relaunched or js.stats["runs_short_circuited"] != 1:
+            fail(f"a finished journal launched {relaunched}")
+        if not np.array_equal(again, xm):
+            fail("the finished journal's matrix differs from the plain xmap")
+        report = read_json(os.path.join(run_a, "report.json"))
+        errs = schema.validate_events_file(
+            os.path.join(run_a, "telemetry", "events.jsonl"))
+        info = edm_inspect.inspect_run(run_a)
+        if report["status"] != "complete" or errs:
+            fail(f"master journal: status {report['status']}, schema "
+                 f"{errs[:3]}")
+        if not (info["rows_total"] and info["rows_done"]
+                == info["rows_total"]):
+            fail(f"inspect_run reads {info['rows_done']} of "
+                 f"{info['rows_total']} rows")
+        rec["master"] = {"groups": read_json(
+            os.path.join(run_a, "run.json"))["groups"],
+            "tiles": report["tiles_committed"], "snapshots": snaps_a,
+            "launches": master_launches, "relaunched": relaunched,
+            "inspect": next(line for line in edm_inspect.format_summary(
+                info).splitlines() if line.startswith("rows:"))}
+
+        # Direct and S-Map routes.
+        before = counts()
+        jd, _, snaps_d = journaled(
+            lambda d: EDM(panel, E=E_FIXED).xmap(run_dir=d), fresh())
+        if not np.array_equal(jd, xm3):
+            fail("journaled direct-route xmap differs from the plain xmap")
+        jsm, _, snaps_s = journaled(
+            lambda d: EDM(panel, E=E_FIXED).xmap(method="smap", run_dir=d),
+            fresh())
+        if not np.array_equal(jsm, xs3):
+            fail("journaled S-Map xmap differs from the plain xmap")
+        rec["direct"] = {"snapshots": snaps_d}
+        rec["smap"] = {"snapshots": snaps_s}
+
+        # The per-series legacy forms on 8 libraries at E = 3.
+        li = torch.as_tensor(np.linspace(0, N_SERIES - 1, CCM_GROUP_LIBS)
+                             .round().astype(np.int64), device=X.device)
+        g1 = core.ccm_group(X[li], X, E=E_FIXED).cpu().numpy()
+        g2 = core.ccm_group_batched(X[li], X, E=E_FIXED)
+        iM = js._master(E_FIXED)[1][:, E_FIXED - 1]
+        kw = dict(E=E_FIXED, tau=1, Tp=0, k=E_FIXED + 1, impl="auto")
+        h1 = ccm_group_from_master(X[li], iM[li], X, **kw).cpu().numpy()
+        h2 = ccm_group_from_master_batched(X[li], iM[li], X, **kw)
+        if not np.array_equal(g1, g2):
+            fail("ccm_group differs from ccm_group_batched")
+        if not np.array_equal(h1, h2):
+            fail("ccm_group_from_master differs from its batched engine")
+        rec["ccm_group"] = {"libraries": li.tolist(),
+                            "from_master_equals_direct":
+                                bool(np.array_equal(g1, h1))}
+        launches = counts()
+        rec["launches"] = {n: c for n, c in launches.items() if c}
+        rec["launches_direct_smap_ccm_group"] = {
+            n: c - before[n] for n, c in launches.items() if c != before[n]}
+
+        # Preemption: SIGTERM at the second launch, exit 17, resume at
+        # another B; the resumed matrix must be the plain one's bits.
+        run_k = fresh()
+        os.makedirs(run_k)
+        rc, _, err = journal_child(root, "kill", run_k, JOURNAL_B)
+        killed = read_json(os.path.join(run_k, "report.json"))
+        if rc != PREEMPTED_EXIT or killed["status"] != "preempted":
+            fail(f"the preempted child exited {rc} with journal status "
+                 f"{killed['status']}: {err}")
+        rc, child, err = journal_child(root, "resume", run_k,
+                                       JOURNAL_RESUME_B)
+        if rc != 0 or child is None:
+            fail(f"the resuming child exited {rc}: {err}")
+        left = N_SERIES - killed["rows_done"]
+        want = -(-left // JOURNAL_RESUME_B)
+        if (child["launches"]["knn_batch"] != want
+                or child["launches"]["lookup_rho"] != want):
+            fail(f"the resume launched {child['launches']} for {left} rows "
+                 f"at B = {JOURNAL_RESUME_B}, not {want} of each")
+        if not np.array_equal(np.load(os.path.join(run_k, "resume.npy")),
+                              xm3):
+            fail("the resumed matrix differs from the uninterrupted one")
+        log = os.path.join(run_k, "telemetry", "events.jsonl")
+        with open(log) as f:
+            names = [json.loads(line)["name"] for line in f]
+        if "run.resume" not in names or schema.validate_events_file(log):
+            fail("the resumed journal's event log lacks run.resume or "
+                 "fails the schema")
+        resumed = read_json(os.path.join(run_k, "report.json"))
+        rec["preempt"] = {"B": JOURNAL_B, "resume_B": JOURNAL_RESUME_B,
+                          "rows_done_at_preempt": killed["rows_done"],
+                          "resume_launches": child["launches"],
+                          "resume_s": child["seconds"],
+                          "rows_resumed": resumed["rows_resumed"],
+                          "attempts": len(read_json(os.path.join(
+                              run_k, "run.json"))["attempts"])}
+
+        # A real CUDA OOM on the S-Map route.
+        run_o = fresh()
+        os.makedirs(run_o)
+        rc, child, err = journal_child(root, "oom", run_o, 0,
+                                       (OOM_CAP_SHARE,))
+        if rc != 0 or child is None:
+            fail(f"the OOM child exited {rc}: {err}")
+        trail = read_json(os.path.join(run_o, "report.json"))["oom_backoff"]
+        actions = [t["action"] for t in trail]
+        if "halve" not in actions or "unclassified" in actions:
+            fail(f"the OOM child's backoff trail is {trail}")
+        if not (child["equal_uncapped"] and np.array_equal(
+                np.load(os.path.join(run_o, "oom.npy")), xs3)):
+            fail("the capped S-Map xmap differs from the uncapped one")
+        rec["oom"] = {"route": "xmap(method='smap'), E = 3, B = N first",
+                      "cap_share": OOM_CAP_SHARE, **child,
+                      "trail": [{k: t[k] for k in ("action", "B", "to_B")
+                                 if k in t} for t in trail],
+                      "first_error": trail[0]["error"]}
+
+        # Wall times, plain and journaled in turns; snapshots per run.
+        calls = {
+            "master": (js.xmap, lambda d: js.xmap(run_dir=d)),
+            "direct": (lambda: EDM(panel, E=E_FIXED).xmap(),
+                       lambda d: EDM(panel, E=E_FIXED).xmap(run_dir=d)),
+            "smap": (lambda: EDM(panel, E=E_FIXED).xmap(method="smap"),
+                     lambda d: EDM(panel, E=E_FIXED).xmap(method="smap",
+                                                          run_dir=d))}
+        for name, (plain, jour) in calls.items():
+            t_p, t_j, snaps = [], [], []
+            for _ in range(RUNS):
+                t_p.append(host_s(torch, plain)[1])
+                _, sec, n = journaled(jour, fresh())
+                t_j.append(sec)
+                snaps.append(n)
+            rec[name].update(
+                plain_s=spread(t_p), journaled_s=spread(t_j),
+                snapshots_per_run=snaps,
+                overhead_median=statistics.median(t_j)
+                / statistics.median(t_p),
+                breakdown=journal_breakdown(
+                    torch, lambda: jour(fresh())))
+    finally:
+        CheckpointManager.save = orig_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, launches
+
+
 def run_links(sess, links):
     """The slice path's link calls on one session → per-link results."""
     out = []
@@ -1729,6 +2070,17 @@ def main() -> None:
     variants_out, variant_launches = run_variants_path(
         torch, X, x_long, core, ops, pairwise_dist, ref, reset_counts, counts)
     print(json.dumps({"variants_path": variants_out}))
+
+    # ---------------------------------------------- 9. journal path
+    journal_out, journal_launches = run_journal_path(
+        torch, np, panel, root, X, EDM, core, reset_counts, counts, xm, xm3,
+        smap_out["xmap_smap_fixed_E"])
+    print(smi)
+    print(json.dumps({"journal_path": journal_out}))
+    for name in ("knn_multi_e", "knn_batch", "lookup_rho",
+                 "pairwise_distances", "topk_select", "smap_gram"):
+        if journal_launches[name] <= 0:
+            fail(f"the journal path launched {name} no time")
 
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,

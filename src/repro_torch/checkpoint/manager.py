@@ -1,0 +1,178 @@
+"""Checkpointing: atomic save/restore of nested array trees.
+
+* atomic: a step is written to ``step_XXXX.tmp`` and renamed — a
+  preempted writer never corrupts the latest checkpoint;
+* auto-resume: ``latest_step()`` + ``restore()`` make restart loops
+  trivial;
+* retention: the last K checkpoints are kept;
+* validated restore: every leaf is stored whole (``np.save``) with its
+  shape and dtype in a manifest, and a leaf that no longer matches the
+  manifest is refused with the leaf named.
+
+A tree is a leaf or a dict, list or tuple of trees; dict keys are walked
+in sorted order. A leaf is an ``np.ndarray`` or a ``torch.Tensor``
+(saved through ``.cpu().numpy()``); ``restore`` hands each leaf back as
+the type, dtype and device of the matching leaf of ``like``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+import numpy as np
+import torch
+
+
+def _flatten(tree) -> tuple[list, str]:
+    """(leaves in a fixed order, a string of the tree's structure)."""
+    leaves: list = []
+
+    def walk(t) -> str:
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return "{" + ",".join(f"{k!r}:{walk(t[k])}" for k in keys) + "}"
+        if isinstance(t, (list, tuple)):
+            inner = ",".join(walk(v) for v in t)
+            return f"[{inner}]" if isinstance(t, list) else f"({inner})"
+        leaves.append(t)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _like(arr: np.ndarray, ref):
+    """``arr`` as the type, dtype and device of the leaf ``ref``."""
+    if isinstance(ref, torch.Tensor):
+        return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
+    return np.asarray(arr, dtype=ref.dtype)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.dir, exist_ok=True)
+
+    # ------------------------------------------------------------- paths
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:010d}")
+
+    def steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self):
+        s = self.steps()
+        return s[-1] if s else None
+
+    # -------------------------------------------------------------- save
+
+    def save(self, step: int, state) -> str:
+        leaves, treedef = _flatten(state)
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"treedef": treedef, "n_leaves": len(leaves),
+                    "step": step, "leaves": []}
+        for i, leaf in enumerate(leaves):
+            arr = _host(leaf)
+            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+            manifest["leaves"].append(
+                {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        self._retain()
+        return final
+
+    def _retain(self):
+        steps = self.steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    # ----------------------------------------------------------- restore
+
+    def restore(self, like, *, step: int | None = None):
+        """Restore into the structure of ``like`` (a tree of arrays or
+        tensors; each leaf comes back as its ``like`` leaf's type)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        d = self._step_dir(step)
+        leaves, _ = _flatten(like)
+        try:
+            with open(os.path.join(d, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(
+                f"checkpoint step {step} has an unreadable manifest "
+                f"({os.path.join(d, 'manifest.json')}): {e}") from e
+        if manifest["n_leaves"] != len(leaves):
+            raise ValueError(
+                f"checkpoint has {manifest['n_leaves']} leaves, "
+                f"target structure has {len(leaves)}")
+        if len(manifest.get("leaves", ())) != manifest["n_leaves"]:
+            raise ValueError(
+                f"checkpoint step {step} manifest is corrupt: "
+                f"{len(manifest.get('leaves', ()))} leaf records for "
+                f"{manifest['n_leaves']} leaves")
+        out = []
+        for i, ref in enumerate(leaves):
+            path = os.path.join(d, f"leaf_{i:05d}.npy")
+            try:
+                arr = np.load(path)
+            except Exception as e:
+                raise ValueError(
+                    f"checkpoint step {step} leaf {i} is unreadable "
+                    f"({path}): {e} — the checkpoint is corrupt; delete "
+                    f"the step directory and resume from an earlier one"
+                ) from e
+            # A leaf that no longer matches the shape/dtype recorded at
+            # save time was truncated or swapped after the atomic publish:
+            # fail here with the leaf named, not deep in the consumer.
+            meta = manifest["leaves"][i]
+            if (list(arr.shape) != list(meta["shape"])
+                    or str(arr.dtype) != meta["dtype"]):
+                raise ValueError(
+                    f"checkpoint step {step} leaf {i} ({path}) does not "
+                    f"match its manifest: loaded {arr.dtype}{arr.shape}, "
+                    f"manifest says {meta['dtype']}{tuple(meta['shape'])} "
+                    f"— the checkpoint is corrupt")
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(
+                    f"leaf {i}: checkpoint shape {arr.shape} != "
+                    f"{tuple(ref.shape)}")
+            out.append(_like(arr, ref))
+        return _unflatten(like, out)

@@ -236,15 +236,33 @@ def pad_batch(chunk: torch.Tensor, B: int) -> torch.Tensor:
     return torch.cat([chunk, chunk[-1:].expand(B - n, *chunk.shape[1:])])
 
 
-def drive_batched(Nl: int, B: int, launch) -> np.ndarray:
-    """Double-buffered host loop over ceil(Nl/B) engine launches.
+def drive_batched(Nl: int, B: int, launch, *, start: int = 0,
+                  on_block=None, monitor=None) -> np.ndarray | None:
+    """Double-buffered host loop over ceil((Nl − start)/B) engine launches.
 
     ``launch(a, b, B)`` enqueues rows [a, b) (padded to B) and returns the
     device result before it is computed (CUDA launches are asynchronous),
     so while the host copies batch i's block (``.cpu()``, the sync point)
     the device already runs batch i+1. At most two launches are in
     flight.
+
+    Hooks of the journaled runner (``repro_torch.edm.runner``), all
+    optional:
+
+    * ``start`` — resume offset: rows [0, start) are held elsewhere (a
+      journal's committed tiles) and are neither launched nor written;
+      the returned rows below ``start`` are uninitialized, and the result
+      is None when ``start >= Nl``.
+    * ``on_block(a, b, block)`` — called once block [a, b) has landed on
+      the host (``block`` the unpadded rows): the journal's commit point.
+      A raise here (preemption's checkpoint-and-exit) leaves no tile half
+      written.
+    * ``monitor`` — a ``distributed.fault.StragglerMonitor`` timed over
+      each loop iteration (launch of tile i + landing of tile i−1) and
+      stamped with the landed tile's first row.
     """
+    if start >= Nl:
+        return None
     out = pending = None
     lat_hist = telemetry.histogram("edm_launch_latency_seconds")
     pairs = telemetry.counter("edm_pairs_total")
@@ -265,15 +283,25 @@ def drive_batched(Nl: int, B: int, launch) -> np.ndarray:
             telemetry.event("engine.tile", a=pa, b=pb,
                             latency_s=t_done - t_disp,
                             sync_s=t_done - t_land)
+        if on_block is not None:
+            on_block(pa, pb, block[: pb - pa])
 
-    with telemetry.span("engine.drive", Nl=Nl, B=B):
-        for a in range(0, Nl, B):
+    with telemetry.span("engine.drive", Nl=Nl, B=B, start=start):
+        for a in range(start, Nl, B):
+            if monitor is not None:
+                monitor.start()
             launches.inc()
             cur = launch(a, min(a + B, Nl), B)
             if pending is not None:
                 land(pending)
+                if monitor is not None:
+                    monitor.stop(pending[0][0])
             pending = ((a, min(a + B, Nl)), cur, time.perf_counter())
+        if monitor is not None:
+            monitor.start()
         land(pending)
+        if monitor is not None:
+            monitor.stop(pending[0][0])
     return out
 
 
@@ -316,6 +344,39 @@ def ccm_group_batched(libs: torch.Tensor, targets: torch.Tensor, *, E: int,
     launch = make_group_launch(libs, targets, E=E, tau=tau, Tp=Tp, k=kk,
                                impl=impl)
     return drive_batched(Nl, B, launch)
+
+
+def ccm_group(libs: torch.Tensor, targets: torch.Tensor, *, E: int,
+              tau: int = 1, Tp: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Per-series CCM block: every library × every target at one E → (Nl, Nt).
+
+    The legacy per-series form, one library at a time: its (Lp, Lp)
+    distance matrix, a top-k of E + 1 neighbours, weights and the fused
+    lookup-ρ. Production callers (``EDM.xmap``) use ``ccm_group_batched``;
+    each of whose rows is the same bits as this form's (the batched
+    engines' B-invariance makes their B = 1 launch the per-series
+    oracle).
+    """
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    L = libs.shape[-1]
+    Lp = num_embedded(L, E, tau)
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    hard_max = Lp - 1 - max(Tp, 0)
+    Yt = ops.lookup_targets(targets, impl=impl)
+    out = []
+    for x in libs:
+        D = ops.pairwise_distances(x, E=E, tau=tau, impl=impl)
+        d, i = ops.topk_select(D, k=E + 1, exclude_self=True,
+                               max_idx=hard_max, impl=impl)
+        w = ops.make_weights(d)
+        out.append(ops.lookup_rho(targets, i[:rows], w[:rows], offset=off,
+                                  impl=impl, Yt=Yt))
+    if not out:
+        return torch.zeros((0, targets.shape[0]), dtype=torch.float32,
+                           device=targets.device)
+    return torch.stack(out)
 
 
 def ccm_matrix(X, E_opt=None, *, tau: int = 1, Tp: int = 0,

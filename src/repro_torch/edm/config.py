@@ -46,6 +46,13 @@ class EDMConfig:
     cache:    hold the kNN master / E_opt in the session for reuse.
     on_invalid: NaN/Inf/constant-series policy ("raise" | "mask" |
               "drop", see ``edm.dataset.Dataset``).
+    checkpoint_keep, checkpoint_every, oom_retries, straggler_threshold:
+              the journaled ``xmap(run_dir=)``'s snapshots kept, tiles per
+              snapshot (``None``: about 8 a group), halve-B rungs on OOM,
+              and straggler factor over the rolling median
+              (``edm.runner.MatrixRunner``).
+    run_tile_rows: library rows per journal tile of the sharded path
+              (validated; the sharded path is not ported yet).
     """
 
     E: int | None = None
@@ -65,6 +72,11 @@ class EDMConfig:
     mesh: Any = None
     cache: bool = True
     on_invalid: str = "raise"
+    checkpoint_keep: int = 3
+    checkpoint_every: int | None = None
+    oom_retries: int = 4
+    run_tile_rows: int | None = None
+    straggler_threshold: float = 2.0
 
     def __post_init__(self):
         if self.E is not None and self.E < 1:
@@ -105,6 +117,22 @@ class EDMConfig:
             raise ValueError(
                 f"unknown on_invalid policy {self.on_invalid!r}; expected "
                 f"one of {INVALID_POLICIES}")
+        if self.checkpoint_keep < 1:
+            raise ValueError(
+                f"checkpoint_keep must be >= 1, got {self.checkpoint_keep}")
+        if self.checkpoint_every is not None and self.checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
+        if self.oom_retries < 0:
+            raise ValueError(
+                f"oom_retries must be >= 0, got {self.oom_retries}")
+        if self.run_tile_rows is not None and self.run_tile_rows < 1:
+            raise ValueError(
+                f"run_tile_rows must be >= 1, got {self.run_tile_rows}")
+        if not self.straggler_threshold > 0:
+            raise ValueError(
+                f"straggler_threshold must be > 0, got "
+                f"{self.straggler_threshold}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh= (sharded placement) is not ported yet: ROADMAP "

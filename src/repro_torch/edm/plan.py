@@ -259,3 +259,34 @@ def ccm_group_from_master_batched(X, iM_E, targets, *, E, tau, Tp, k, impl,
     launch = make_master_group_launch(X, iM_E, targets, E=E, tau=tau, Tp=Tp,
                                       k=k, impl=impl)
     return drive_batched(Nl, B, launch)
+
+
+def ccm_group_from_master(X, iM_E, targets, *, E, tau, Tp, k,
+                          impl) -> torch.Tensor:
+    """Per-series CCM block from cached neighbour indices → (N_lib, N_tgt).
+
+    The cached-session counterpart of ``core.ccm.ccm_group``, one library
+    at a time: its indices derived from its master level iM_E (N, L,
+    k_master), the k selected distances recomputed, then weights and the
+    fused lookup-ρ. The legacy per-series form; the session runs
+    ``ccm_group_from_master_batched``, whose rows are the same bits.
+    """
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    L = X.shape[-1]
+    Lp = num_embedded(L, E, tau)
+    rows = pred_rows(L, E, tau, Tp)
+    off = embed_offset(E, tau, Tp)
+    hard_max = Lp - 1 - max(Tp, 0)
+    Yt = ops.lookup_targets(targets, impl=impl)
+    out = []
+    for x, iE in zip(X, iM_E):
+        ik, ok = _derive_idx(iE[:Lp], k=k, max_idx=hard_max)
+        d = _gathered_dists(x, ik, ok, E=E, tau=tau)
+        w = ops.make_weights(d)
+        out.append(ops.lookup_rho(targets, ik[:rows], w[:rows], offset=off,
+                                  impl=impl, Yt=Yt))
+    if not out:
+        return torch.zeros((0, targets.shape[0]), dtype=torch.float32,
+                           device=targets.device)
+    return torch.stack(out)

@@ -25,8 +25,10 @@ S-Map Gram engine (``core.smap_engine``) once per E-group. ``append``
 grows the panel and a cached master in one merge launch
 (``plan.panel_master_append``), bit-identical to a rebuild.
 
-Methods of ``repro.edm.EDM`` that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``xmap(run_dir=...)`` journals the matrix run through
+``edm.runner.MatrixRunner``: resumable, preemptible, and halving its batch
+on a CUDA out-of-memory error. Sharded placement (``mesh=``) is not
+ported yet: ``EDMConfig`` raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,11 +61,6 @@ from repro_torch.edm.plan import (
     simplex_skill_from_master,
 )
 from repro_torch.edm.surrogates import make_surrogates
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1, item {item}")
 
 
 def _e_groups(E_opt, N: int):
@@ -605,21 +602,31 @@ class EDM:
         ``method="smap"`` swaps both for the batched S-Map engine
         (``core.smap_group``) at locality ``theta`` (default
         ``config.theta``).
+
+        ``run_dir=`` makes the run fault-tolerant and resumable
+        (``edm.runner``): every engine tile is journaled under that
+        directory, SIGTERM/SIGINT checkpoints and exits with code
+        ``runner.PREEMPTED_EXIT`` (17), a CUDA out-of-memory error halves
+        the batch and retries, and calling again with the same run_dir
+        resumes bit-identically from the last committed tile — a
+        completed journal returns the stored matrix with no launch. The
+        journal is keyed by a content hash of panel + config (device type
+        included) + task, so a stale run_dir is refused, never reused.
+        Masked-invalid series are NaN rows/columns of the result (and
+        named in ``run_dir/report.json``).
         """
         if method not in ("simplex", "smap"):
             raise ValueError(f"unknown xmap method {method!r}")
-        if run_dir is not None:
-            raise _not_ported("xmap(run_dir=) journaled runs",
-                              "7 (Journaled runs)")
         c = self.config
         N = self.data.N
         with telemetry.span("session.xmap", method=method, N=N,
-                            journaled=False, placement="local"):
+                            journaled=run_dir is not None,
+                            placement="local"):
             self._plan_event("xmap")
             if E_opt is None:
                 E_opt = np.full(N, c.E, np.int32) if c.E else self._rho()[0]
-            _, groups = _e_groups(E_opt, N)
-            rho = self._xmap_local(method, groups, theta)
+            E_opt, groups = _e_groups(E_opt, N)
+            rho = self._xmap_local(method, groups, theta, run_dir, E_opt)
         return self._mask_matrix(rho)
 
     def _xmap_group_launch(self, method, E, members, theta, iM):
@@ -653,14 +660,16 @@ class EDM:
                                             device=self.device)
         return launch, max(1, min(int(B), N))
 
-    def _xmap_local(self, method, groups, theta) -> np.ndarray:
+    def _xmap_local(self, method, groups, theta, run_dir=None,
+                    E_opt=None) -> np.ndarray:
         """Local all-pairs matrix: library-batched engine per E-group.
 
         For simplex, a cached master covering the needed levels supplies
         the indices; otherwise the direct engine runs — a one-shot matrix
         does not pay for a master it would use once, a repeated one
         (second direct run on a caching session) builds it. S-Map uses
-        no kNN state.
+        no kNN state. With ``run_dir`` the same launches run under the
+        journaled ``MatrixRunner``.
         """
         c = self.config
         N = self.data.N
@@ -677,12 +686,52 @@ class EDM:
             iM = None
             if simplex and c.cache:
                 self._bump("xmap_direct_runs")
+        entries = [
+            (E, members) + self._xmap_group_launch(method, E, members,
+                                                   theta, iM)
+            for E, members in groups.items()]
+        if run_dir is not None:
+            return self._run_journaled(run_dir, method, theta, entries,
+                                       E_opt)
         rho = np.zeros((N, N), np.float32)
-        for E, members in groups.items():
-            launch, B = self._xmap_group_launch(method, E, members, theta,
-                                                iM)
+        for E, members, launch, B in entries:
             rho[:, members] = drive_batched(N, B, launch)
         return rho
+
+    def _run_journaled(self, run_dir, method, theta, entries,
+                       E_opt) -> np.ndarray:
+        """Drive xmap tile groups through a journaled ``MatrixRunner``."""
+        from repro_torch.edm.runner import MatrixRunner, run_key
+        c = self.config
+        N = self.data.N
+        groups_sig = [[E, len(members)] for E, members, _, _ in entries]
+        th = (float(c.theta if theta is None else theta)
+              if method == "smap" else None)
+        # The task signature hashes the FULL per-series E table, not a
+        # group-size summary: E_opt=[2,3] vs [3,2] keep group sizes but
+        # assign different manifolds, and must key to different runs.
+        e_table = np.ascontiguousarray(
+            np.broadcast_to(np.asarray(E_opt, np.int32), (N,)))
+        key = run_key(self.data.panel, c,
+                      ("xmap", method, th, e_table.tobytes()))
+        runner = MatrixRunner(
+            run_dir, key=key, shape=(N, N), groups_sig=groups_sig,
+            keep=c.checkpoint_keep, checkpoint_every=c.checkpoint_every,
+            oom_retries=c.oom_retries,
+            invalid_series=self.data.invalid_report,
+            straggler_threshold=c.straggler_threshold)
+        if runner.complete:
+            # Finished journal: the stored matrix IS the result — zero
+            # engine launches (restart loops may re-run unconditionally).
+            self._bump("runs_short_circuited")
+            runner.close()  # release the run_dir lock
+            return runner.result()
+        with runner:
+            for g, (E, members, launch, B) in enumerate(entries):
+                runner.drive_group(g, launch, B, members)
+            out = runner.finalize()
+        self._bump("rows_resumed", runner.resumed_rows)
+        return out
 
     # ------------------------------------------------------ batched entry
 

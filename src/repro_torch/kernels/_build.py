@@ -162,8 +162,19 @@ def entry(fn_name: str):
     return fn
 
 
+#: ``cudaErrorMemoryAllocation``: a kernel's own allocation failed.
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
 def check(err: int, name: str) -> None:
-    """Raise if a launch function returned a nonzero ``cudaError_t``."""
+    """Raise if a launch function returned a nonzero ``cudaError_t``: an
+    allocation failure as ``torch.cuda.OutOfMemoryError`` (what the
+    caching allocator raises, and what the journaled runner's halve-B
+    ladder catches), anything else as ``RuntimeError``."""
+    if err == CUDA_ERROR_MEMORY_ALLOCATION:
+        raise torch.cuda.OutOfMemoryError(
+            f"CUDA out of memory. {name} kernel launch failed: "
+            f"cudaError_t {err} (cudaErrorMemoryAllocation)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 

@@ -201,3 +201,65 @@ def test_ccm_matrix_wraps_the_session_xmap():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, jccm.ccm_matrix(panel, E_opt, impl="ref"),
                                rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("E,tau,Tp", [(2, 1, 0), (3, 2, 1), (5, 1, 0)])
+def test_ccm_group_per_series_matches_reference_and_engine(E, tau, Tp):
+    """The legacy per-series block: each library's neighbour indices equal
+    the JAX pipeline's, ρ within 1e-5 of ``repro``'s ``lax.map`` form
+    (itself ~1 ULP from its own engine), and bit-equal to the port's
+    batched engine (its B = 1 oracle)."""
+    from repro.kernels import ops as jops
+
+    from repro_torch.core import ccm_group, ccm_group_batched
+    from repro_torch.core.embedding import num_embedded
+    from repro_torch.kernels import ops
+
+    panel = _panel()
+    X = torch.as_tensor(panel)
+    got = ccm_group(X, X, E=E, tau=tau, Tp=Tp)
+    want = jccm.ccm_group(jnp.asarray(panel), jnp.asarray(panel), E=E,
+                          tau=tau, Tp=Tp, impl="ref")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_array_equal(
+        got.numpy(), ccm_group_batched(X, X, E=E, tau=tau, Tp=Tp,
+                                       batch_libs=2))
+    hard_max = num_embedded(panel.shape[1], E, tau) - 1 - Tp
+    for x, jx in zip(X, jnp.asarray(panel)):
+        _, i = ops.topk_select(ops.pairwise_distances(x, E=E, tau=tau),
+                               k=E + 1, exclude_self=True, max_idx=hard_max)
+        _, ji = jops.topk_select(
+            jops.pairwise_distances(jx, E=E, tau=tau, impl="ref"), k=E + 1,
+            exclude_self=True, max_idx=hard_max, impl="ref")
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("E", [2, 4])
+def test_ccm_group_from_master_matches_reference_and_engine(sessions, E):
+    from repro.edm import plan as jplan
+
+    from repro_torch.core import ccm_group
+    from repro_torch.edm.plan import (_derive_idx, ccm_group_from_master,
+                                      ccm_group_from_master_batched)
+
+    panel, js, tsess = sessions
+    X = torch.as_tensor(panel)
+    iM = tsess._master(E)[1][:, E - 1]
+    jiM = js._master(E)[1][:, E - 1]
+    np.testing.assert_array_equal(iM.numpy(), np.asarray(jiM))
+    kw = dict(E=E, tau=1, Tp=0, k=E + 1)
+    got = ccm_group_from_master(X, iM, X, impl="auto", **kw)
+    want = jplan.ccm_group_from_master(jnp.asarray(panel), jiM,
+                                       jnp.asarray(panel), impl="ref", **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_array_equal(
+        got.numpy(), ccm_group_from_master_batched(X, iM, X, impl="auto",
+                                                   batch_libs=2, **kw))
+    # the master-derived tables are the capped top-k: the same bits
+    np.testing.assert_array_equal(got.numpy(), ccm_group(X, X, E=E).numpy())
+    Lp = panel.shape[1] - (E - 1)
+    ik, _ = _derive_idx(iM[:, :Lp], k=E + 1, max_idx=Lp - 1)
+    jik, _ = jplan._derive_idx(jiM[:, :Lp], k=E + 1, max_idx=Lp - 1)
+    np.testing.assert_array_equal(ik.numpy(), np.asarray(jik))

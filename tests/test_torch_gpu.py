@@ -848,3 +848,70 @@ def test_topk_raises_past_its_k_limit():
     D = torch.zeros((k, k), device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         topk.topk_select(D, k=k)
+
+
+@pytest.mark.parametrize("route", ["master", "direct", "smap"])
+def test_journaled_xmap_equals_plain_on_the_card(tmp_path, route):
+    """``xmap(run_dir=)`` on the card: the plain xmap's bits, the journal
+    complete, and a second call launches no kernel."""
+    import json
+
+    from repro_torch.edm import EDM
+    from repro_torch.kernels import knn_batch, knn_multi_e, lookup, smap_gram
+    X = _cuda_panel(N=16, L=500)
+    if route == "master":
+        sess = EDM(X, E_max=6)
+        sess.optimal_E()
+        call = {}
+    else:
+        sess = EDM(X, E=3, batch_libs=5)
+        call = {"method": "smap"} if route == "smap" else {}
+    plain = EDM(X, E_max=6) if route == "master" else EDM(X, E=3)
+    if route == "master":
+        plain.optimal_E()
+    want = plain.xmap(**call)
+    got = sess.xmap(run_dir=str(tmp_path / "run"), **call)
+    assert np.array_equal(got, want)
+    report = json.loads((tmp_path / "run" / "report.json").read_text())
+    assert report["status"] == "complete"
+    wrappers = (knn_batch.all_knn_batch, knn_multi_e.all_knn_multi_e,
+                lookup.lookup_rho, smap_gram.smap_gram)
+    before = [fn.launches for fn in wrappers]
+    again = EDM(X, E_max=6) if route == "master" else EDM(X, E=3)
+    if route == "master":
+        again._cache = sess._cache
+    assert np.array_equal(again.xmap(run_dir=str(tmp_path / "run"), **call),
+                          want)
+    assert [fn.launches for fn in wrappers] == before
+    assert again.stats["runs_short_circuited"] == 1
+
+
+def test_real_cuda_oom_halves_the_batch_bit_identically(tmp_path):
+    """A memory cap the S-Map route's first batch cannot be held under: the
+    allocator's ``torch.cuda.OutOfMemoryError`` halves B (a ``halve``
+    entry, never ``unclassified``) and the matrix keeps its bits."""
+    import json
+
+    from repro_torch.edm import EDM
+    X = _cuda_panel(N=64, L=1600)
+    want = EDM(X, E=3).xmap(method="smap")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    EDM(X, E=3).xmap(method="smap")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(
+        (base + 0.7 * (peak - base)) / total)
+    try:
+        got = EDM(X, E=3).xmap(method="smap", run_dir=str(tmp_path / "run"))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    trail = json.loads(
+        (tmp_path / "run" / "report.json").read_text())["oom_backoff"]
+    actions = [t["action"] for t in trail]
+    assert "halve" in actions and "unclassified" not in actions, trail
+    assert trail[0]["B"] == 64
+    assert np.array_equal(got, want)

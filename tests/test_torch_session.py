@@ -172,8 +172,7 @@ def test_dataset_defaults_to_the_card_and_raises_without_cuda(monkeypatch):
 def test_unported_methods_raise_naming_roadmap():
     panel = _panel(4)
     sess = EDM(panel[:, :190], E_max=E_MAX, device="cpu")
-    calls = [lambda: sess.xmap(run_dir="unused"),
-             lambda: EDMConfig(mesh=object())]
+    calls = [lambda: EDMConfig(mesh=object())]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
