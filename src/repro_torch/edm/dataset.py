@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.edm.config import INVALID_POLICIES
+from repro_torch.kernels import ops
 
 
 def series_stats(arr: np.ndarray) -> dict:
@@ -165,6 +166,7 @@ class Dataset:
         self.names = names
         self.valid = valid
         self._stats = stats  # running series_stats of the raw panel
+        self._embeddings: dict[tuple[int, int], torch.Tensor] = {}
 
     def append(self, delta) -> list[dict]:
         """Grow every series by Δt points under the bound policy.
@@ -228,6 +230,7 @@ class Dataset:
         self.panel = panel
         self._stats = merged
         self.invalid_report = self.invalid_report + fresh
+        self._embeddings.clear()
         return fresh
 
     @property
@@ -253,6 +256,19 @@ class Dataset:
                 raise KeyError(f"panel has no names (asked for {key!r})")
             return self.names.index(key)
         return int(key)
+
+    def series(self, key) -> torch.Tensor:
+        """One series (an int position or a name) as an (L,) tensor."""
+        return self.panel[self.index_of(key)]
+
+    def embedding(self, E: int, tau: int = 1) -> torch.Tensor:
+        """Cached (N, Lp, E) delay embeddings of every series, on the
+        panel's device; the same tensor until ``append`` grows the panel."""
+        key = (int(E), int(tau))
+        if key not in self._embeddings:
+            self._embeddings[key] = ops.delay_embed(self.panel, key[0],
+                                                    key[1])
+        return self._embeddings[key]
 
     def __len__(self) -> int:
         return self.N

@@ -237,6 +237,7 @@ class MatrixRunner:
         self._since_snapshot = 0
         self._t0 = time.monotonic()
         self._guard: PreemptionGuard | None = None
+        self._saved_step = None    # step of the newest snapshot on disk
         self.resumed_rows = 0
         #: this attempt's identity + the journal's prior-attempt trail —
         #: the resume lineage the run report and inspector surface.
@@ -327,6 +328,7 @@ class MatrixRunner:
         step = self.ckpt.latest_step()
         if step is not None:
             self.state.load(self.ckpt.restore(self.state.tree(), step=step))
+            self._saved_step = step
             self._since_snapshot = 0
             self.resumed_rows = self.state.rows_done
         if not self.complete:
@@ -355,13 +357,20 @@ class MatrixRunner:
                                     + [self._attempt_record()])}, f)
         os.replace(tmp, self._manifest_path)
 
-    def _snapshot(self) -> None:
-        self.ckpt.save(self.state.rows_done, self.state.tree())
+    def _snapshot(self, report: bool = True) -> None:
+        """Snapshot the run state. A state the newest snapshot already
+        holds is not written again: rows are committed once, so an equal
+        row count is an equal state."""
+        step = self.state.rows_done
+        if step != self._saved_step:
+            self.ckpt.save(step, self.state.tree())
+            self._saved_step = step
         self._since_snapshot = 0
-        # refresh the report on every snapshot so the run inspector
-        # (python -m repro_torch.edm.inspect) sees live progress, not just the
-        # terminal states
-        self.write_report()
+        if report:
+            # refresh the report on every snapshot so the run inspector
+            # (python -m repro_torch.edm.inspect) sees live progress, not
+            # just the terminal states
+            self.write_report()
 
     @property
     def complete(self) -> bool:
@@ -479,7 +488,7 @@ class MatrixRunner:
     def _preempt(self):
         """Commit the journal and exit PREEMPTED_EXIT (restart-loop ABI)."""
         self._status = "preempted"
-        self._snapshot()
+        self._snapshot(report=False)
         self._write_manifest()
         self.write_report()
         telemetry.counter("edm_runs_preempted").inc()
@@ -495,7 +504,7 @@ class MatrixRunner:
                 f"finalize() with {int((~self.state.done).sum())} rows "
                 f"not driven — a tile group was skipped")
         self._status = "complete"
-        self._snapshot()
+        self._snapshot(report=False)
         self._write_manifest()
         self.write_report()
         telemetry.event("run.complete", run_id=self.run_id,

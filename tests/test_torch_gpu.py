@@ -915,3 +915,98 @@ def test_real_cuda_oom_halves_the_batch_bit_identically(tmp_path):
     assert "halve" in actions and "unclassified" not in actions, trail
     assert trail[0]["B"] == 64
     assert np.array_equal(got, want)
+
+
+def _serve_panel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    full = ts.forced_network_panel(8, 420, seed=3)[0]
+    return full[:, :400], full
+
+
+SERVE_PAIRS = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 7),
+               (7, 0)]
+
+
+def test_served_ccm_equals_direct_sessions_on_the_card():
+    """Coalesced answers equal singleton ``ccm_batch`` calls, an append
+    equals a cold session, and an evicted master's lazy rebuild answers
+    the same bits; the eviction frees what it reports."""
+    from repro_torch.edm import EDM
+    from repro_torch.serving import EDMServer
+    panel, full = _serve_panel()
+    grown = full[:, :403]
+
+    def oracle(x):
+        d = EDM(x, E_max=6)
+        d.optimal_E()
+        return [np.float32(d.ccm_batch([p], E=3)[0]) for p in SERVE_PAIRS]
+
+    with EDMServer(autostart=False) as srv:
+        srv.register_panel("p", panel, E_max=6, cache=True)
+        srv.submit("optimal_E", "p")
+        srv.scheduler.drain_once()
+        futs = [srv.submit("ccm", "p", lib=l, target=t, E=3)
+                for l, t in SERVE_PAIRS]
+        assert srv.scheduler.drain_once() == len(SERVE_PAIRS)
+        assert [np.float32(f.result()) for f in futs] == oracle(panel)
+        srv.submit("append", "p", delta=full[:, 400:403])
+        srv.scheduler.drain_once()
+        futs = [srv.submit("ccm", "p", lib=l, target=t, E=3)
+                for l, t in SERVE_PAIRS]
+        srv.scheduler.drain_once()
+        want = oracle(grown)
+        assert [np.float32(f.result()) for f in futs] == want
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        freed = srv.evict_panel("p")
+        torch.cuda.synchronize()
+        assert freed > 0 and before - torch.cuda.memory_allocated() >= freed
+        futs = [srv.submit("ccm", "p", lib=l, target=t, E=3)
+                for l, t in SERVE_PAIRS]
+        srv.scheduler.drain_once()
+        assert [np.float32(f.result()) for f in futs] == want
+
+
+def test_recovered_server_equals_the_uninterrupted_one_on_the_card(
+        tmp_path):
+    import json
+    import os
+
+    from repro_torch.edm import EDM
+    from repro_torch.serving import EDMServer, WalError
+    panel, full = _serve_panel()
+    sd = str(tmp_path / "state")
+    with EDMServer(state_dir=sd, autostart=False) as srv:
+        srv.register_panel("p", panel, E_max=6, cache=True)
+        for k in range(3):
+            srv.submit("append", "p", delta=full[:, 400 + k:401 + k])
+            srv.scheduler.drain_once()
+        meta_path = os.path.join(srv.registry.get("p").wal.pdir,
+                                 "meta.json")
+
+    def set_device(device):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        meta["config"]["device"] = device
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+
+    set_device("cpu")
+    with pytest.raises(WalError, match="device type"):
+        EDMServer.recover(sd, autostart=False)
+    set_device("cuda")
+    rec = EDMServer.recover(sd, autostart=False)
+    try:
+        assert rec.recovery_report["p"]["version"] == 3
+        assert rec.registry.get("p").sess.data.panel.is_cuda
+        futs = rec.submit_many("ccm", "p", [{"lib": l, "target": t, "E": 3}
+                                            for l, t in SERVE_PAIRS])
+        while rec.scheduler.drain_once():
+            pass
+        d = EDM(full[:, :403], E_max=6)
+        want = [np.float32(v) for v in d.ccm_batch(SERVE_PAIRS, E=3)]
+        assert [np.float32(f.result()) for f in futs] == want
+    finally:
+        rec.close()
+

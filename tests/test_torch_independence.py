@@ -44,7 +44,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.telemetry, repro_torch.core.stats, "
             "repro_torch.telemetry.schema, repro_torch.checkpoint, "
             "repro_torch.distributed.fault, repro_torch.edm.runner, "
-            "repro_torch.edm.inspect\n"
+            "repro_torch.edm.inspect, repro_torch.serving, "
+            "repro_torch.serving.faultinject, repro_torch.serving.state, "
+            "repro_torch.serving.subscriptions, "
+            "repro_torch.serving.scheduler, "
+            "repro_torch.serving.durability, "
+            "repro_torch.serving.edm_server\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
