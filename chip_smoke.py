@@ -134,6 +134,26 @@ phase passed; any failure exits nonzero. Phases:
    ticks' ms, eviction and rebuild ms, recovery s (the child's start and
    kernel load not in it), the query stream's device busy time and idle
    share, and the path's launches (exact: one panel drains at a time).
+11. sharded path — ``EDMConfig(mesh=...)`` on ``torch.distributed``, at
+   the same shape. (a) A world of one: ``make_ccm_mesh((1, 1), ("data",
+   "model"))`` starts NCCL itself; ``EDM(panel, mesh=mesh)``'s
+   ``optimal_E()``, ``xmap()``, ``xmap(method="smap")``, ``smap()``,
+   ``EDM(panel, E=3, mesh=mesh).xmap()``, ``sharded_ccm_convergence(X[:8],
+   X, E=3, lib_sizes=...)``, a journaled mesh ``xmap(run_dir=)`` and the
+   per-series engines ``sharded_optimal_E`` / ``sharded_smap_theta`` on
+   axes ("data",): launches per kernel from that run, E_opt equal and every
+   result bit-equal (or within ``RHO_ATOL`` / ``smap_rho_tol``, saying
+   which) to a ``cache=False`` local session and to ``core``'s engines, the
+   journaled run bit-equal to the plain one; medians of ``RUNS`` runs,
+   device busy time and idle share per call. (b) Four ranks on the one
+   card (``SHARDED_CHILD``: gloo on a ``FileStore``, every rank on
+   ``cuda:0``, loading the kernels the parent built): mesh (2, 2) runs the
+   session's ``xmap()`` of both methods and a journaled ``xmap(run_dir=)``,
+   mesh (4,) over ("data",) ``sharded_optimal_E`` and
+   ``sharded_smap_theta`` on the panel zero-padded to 156 rows; every
+   rank's results against (a)'s, rank 0's wall seconds and the launches
+   summed over the ranks. It checks code paths, not scaling: four ranks
+   share one card. The process groups end before the last line.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -280,6 +300,86 @@ for k in range(ticks):
     r = srv.call("append", "kp", delta=full[:, L + k:L + k + 1])
     print(f"ACK {r['version']}", flush=True)
 time.sleep(600)
+"""
+
+
+# A rank of the sharded phase's four-rank world on the one card: gloo on a
+# FileStore under ``out``, every rank on cuda:0. Mesh (2, 2): the session's
+# optimal_E, xmap of both methods and a journaled xmap (rank 0 writes the
+# run dir); mesh (4,) over ("data",): sharded_optimal_E and
+# sharded_smap_theta on the panel zero-padded to a multiple of 4. Saves its
+# results, prints the seconds of each step (its CUDA context and the
+# world's first collective apart, and the session's optimal_E once more on
+# a fresh session) and its kernel launches.
+SHARDED_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.data.timeseries import forced_network_panel
+from repro_torch.distributed import (gather_host, make_ccm_mesh,
+                                     pad_to_multiple, sharded_optimal_E,
+                                     sharded_smap_theta)
+from repro_torch.edm import EDM
+from repro_torch.kernels import (knn_batch, knn_multi_e, lookup, pairwise_dist,
+                                 smap_gram, topk)
+
+rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+N, L, seed, E_max, E = (int(a) for a in sys.argv[4:9])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(
+    os.path.join(out, "store"), world), rank=rank, world_size=world)
+wrappers = {"knn_multi_e": knn_multi_e.all_knn_multi_e,
+            "knn_batch": knn_batch.all_knn_batch,
+            "lookup_rho": lookup.lookup_rho,
+            "pairwise_distances": pairwise_dist.pairwise_distances,
+            "topk_select_sizes": topk.topk_select_sizes,
+            "smap_gram": smap_gram.smap_gram}
+panel = forced_network_panel(N, L, seed=seed)[0]
+res, sec = {}, {}
+t_start = t0 = time.perf_counter()
+
+
+def lap(name):
+    global t0
+    torch.cuda.synchronize()
+    sec[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+
+torch.zeros(1, device="cuda")  # the rank's CUDA context
+lap("cuda_init")
+dist.barrier()  # the world's first collective: gloo connects its pairs
+lap("first_collective")
+mesh22 = make_ccm_mesh((2, 2), ("data", "model"))
+sess = EDM(panel, E_max=E_max, mesh=mesh22)
+lap("mesh_2x2_init")
+res["E_opt"], res["rho_E"] = sess.optimal_E()
+lap("optimal_E")
+res["xmap"] = sess.xmap()
+lap("xmap")
+res["xmap_smap"] = sess.xmap(method="smap")
+lap("xmap_smap")
+res["xmap_journaled"] = sess.xmap(run_dir=os.path.join(out, "run"))
+lap("xmap_journaled")
+EDM(panel, E_max=E_max, mesh=mesh22).optimal_E()
+lap("optimal_E_again")
+mesh4 = make_ccm_mesh((4,), ("data",))
+lap("mesh_4_init")
+Xp = pad_to_multiple(torch.as_tensor(panel, device="cuda"), 4)
+E4, rho4 = sharded_optimal_E(Xp, E_max=E_max, mesh=mesh4, axes=("data",))
+res["E_opt_direct"] = gather_host(E4)[:N]
+res["rho_E_direct"] = gather_host(rho4)[:N]
+lap("optimal_E_direct")
+res["smap_theta"] = gather_host(sharded_smap_theta(
+    Xp, E=E, mesh=mesh4, axes=("data",)))[:N]
+lap("smap_theta_direct")
+sec["total"] = time.perf_counter() - t_start
+np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+print(json.dumps({"sharded_child": {
+    "rank": rank, "seconds": sec, "padded_rows": int(Xp.shape[0]),
+    "launches": {n: fn.launches for n, fn in wrappers.items()}}}))
+dist.destroy_process_group()
 """
 
 
@@ -1716,6 +1816,207 @@ def run_journal_path(torch, np, panel, root, X, EDM, core, reset_counts,
     return rec, launches
 
 
+def agreement(np, got, want, tol):
+    """How ``got`` stands to ``want``: bit-equal, or the largest
+    difference beside ``tol``."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return {"shape": [list(got.shape), list(want.shape)],
+                "within": False}
+    if np.array_equal(got, want):
+        return {"bit_equal": True, "within": True}
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    return {"bit_equal": False, "max_abs_err": err, "tol": tol,
+            "within": err <= tol}
+
+
+def run_sharded_path(torch, np, panel, root, X, E_opt, EDM, core,
+                     reset_counts, counts):
+    """``EDMConfig(mesh=...)`` at Fish1_Normo's shape: (a) a world of one
+    (NCCL, started by ``make_ccm_mesh``) against the local engines, timed
+    and profiled; (b) four gloo ranks on the one card (``SHARDED_CHILD``)
+    against (a). Returns (record, the world of one's launches)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.smap_engine import DEFAULT_THETAS
+    from repro_torch.distributed import (gather_host, make_ccm_mesh,
+                                         sharded_ccm_convergence,
+                                         sharded_optimal_E,
+                                         sharded_smap_theta)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    runs = iter(range(10**6))
+
+    def fresh():
+        return os.path.join(tmp, f"run{next(runs)}")
+
+    rec = {}
+    try:
+        # (a) a world of one; the counted run of the path.
+        t0 = time.perf_counter()
+        mesh = make_ccm_mesh((1, 1), ("data", "model"))
+        rec["world_of_one_init_s"] = time.perf_counter() - t0
+        rec["backend"] = str(dist.get_backend())
+        calls = {
+            "optimal_E": lambda: EDM(panel, E_max=E_MAX,
+                                     mesh=mesh).optimal_E(),
+            "xmap": lambda: ms.xmap(),
+            "xmap_smap": lambda: ms.xmap(method="smap"),
+            "smap": lambda: ms.smap(),
+            "xmap_fixed_E": lambda: EDM(panel, E=E_FIXED, mesh=mesh).xmap(),
+            "ccm_convergence": lambda: gather_host(sharded_ccm_convergence(
+                X[:CCM_GROUP_LIBS], X, E=E_FIXED, lib_sizes=LIB_SIZES,
+                mesh=mesh)),
+            "xmap_journaled": lambda: ms.xmap(run_dir=fresh()),
+            "optimal_E_direct": lambda: [gather_host(t) for t in
+                                         sharded_optimal_E(
+                                             X, E_max=E_MAX, mesh=mesh,
+                                             axes=("data",))],
+            "smap_theta_direct": lambda: gather_host(sharded_smap_theta(
+                X, E=E_FIXED, mesh=mesh, axes=("data",)))}
+        reset_counts()
+        ms = EDM(panel, E_max=E_MAX, mesh=mesh)
+        out, per_call, first_s = {}, {}, {}
+        # counted: the session's own optimal_E, whose E_opt its xmaps use
+        for name, fn in dict(calls, optimal_E=ms.optimal_E).items():
+            before = counts()
+            out[name], first_s[name] = host_s(torch, fn)
+            per_call[name] = {n: c - before[n] for n, c in counts().items()
+                              if c != before[n]}
+        launches = counts()
+        for name in ("knn_multi_e", "lookup_rho", "knn_batch",
+                     "pairwise_distances", "topk_select_sizes", "smap_gram"):
+            if launches[name] <= 0:
+                fail(f"the sharded path launched {name} no time")
+        E_m, rho_m = out["optimal_E"]
+        if rho_m.shape != (N_SERIES, E_MAX) or not np.isfinite(rho_m).all():
+            fail("sharded optimal_E: shape or non-finite values")
+        for name in ("xmap", "xmap_smap", "xmap_fixed_E", "xmap_journaled"):
+            m = out[name]
+            if m.shape != (N_SERIES, N_SERIES) or not np.isfinite(m).all():
+                fail(f"sharded {name}: shape {m.shape} or non-finite values")
+
+        # Against the local engines (not counted).
+        loc = EDM(panel, E_max=E_MAX, cache=False)
+        E_l, rho_l = loc.optimal_E()
+        cv_l = torch.stack([core.ccm_convergence(
+            x, X, E=E_FIXED, lib_sizes=LIB_SIZES) for x in X[:CCM_GROUP_LIBS]],
+            dim=1).cpu().numpy()
+        th = smap_rho_tol(SMAP_THETA)
+        sw_tol = min(smap_rho_tol(t) for t in DEFAULT_THETAS)
+        checks = {
+            "E_opt_equal_local": bool((E_m == E_l).all()),
+            "E_opt_equal_cached_session": bool((E_m == E_opt).all()),
+            "rho_E": agreement(np, rho_m, rho_l, RHO_ATOL),
+            "xmap": agreement(np, out["xmap"], loc.xmap(), RHO_ATOL),
+            "xmap_smap": agreement(np, out["xmap_smap"],
+                                   loc.xmap(method="smap"), th),
+            "smap": agreement(np, out["smap"], loc.smap(), sw_tol),
+            "xmap_fixed_E": agreement(np, out["xmap_fixed_E"], EDM(
+                panel, E=E_FIXED, cache=False).xmap(), RHO_ATOL),
+            "xmap_fixed_E_core": agreement(
+                np, out["xmap_fixed_E"], core.ccm_group_batched(
+                    X, X, E=E_FIXED), RHO_ATOL),
+            "ccm_convergence_core": agreement(
+                np, out["ccm_convergence"], cv_l, RHO_ATOL),
+            "xmap_journaled_vs_plain": agreement(
+                np, out["xmap_journaled"], out["xmap"], 0.0),
+            "optimal_E_direct": agreement(
+                np, out["optimal_E_direct"][1], rho_l, RHO_ATOL),
+            "smap_theta_direct_core": agreement(
+                np, out["smap_theta_direct"], core.smap_theta_sweep(
+                    X, E=E_FIXED).cpu().numpy(), sw_tol)}
+        rec["world_of_one"] = {
+            "first_run_s": first_s, "launches_per_call": per_call,
+            "launches": {n: c for n, c in launches.items() if c},
+            "checks": checks}
+        if not (checks["E_opt_equal_local"]
+                and checks["E_opt_equal_cached_session"]):
+            fail("sharded optimal_E's E_opt differs from the local runs'")
+        for name, c in checks.items():
+            if isinstance(c, dict) and not c["within"]:
+                fail(f"sharded {name}: {c}")
+
+        # Timed runs (the counted run was the warm-up), then profiled.
+        timed = {name: [host_s(torch, fn)[1] for _ in range(RUNS)]
+                 for name, fn in calls.items()}
+        rec["world_of_one"]["seconds_per_call"] = {
+            n: spread(v) for n, v in timed.items()}
+        rec["world_of_one"]["pairs_per_s"] = {
+            n: N_SERIES * N_SERIES / statistics.median(timed[n])
+            for n in ("xmap", "xmap_smap", "xmap_fixed_E")}
+        rec["world_of_one"]["device_profile"] = {
+            name: device_profile(torch, fn) for name, fn in calls.items()}
+
+        # (b) four ranks on the one card: gloo, one process a rank.
+        ref_ = {"E_opt": E_m, "rho_E": rho_m, "xmap": out["xmap"],
+                "xmap_smap": out["xmap_smap"],
+                "xmap_journaled": out["xmap"],
+                "E_opt_direct": out["optimal_E_direct"][0],
+                "rho_E_direct": out["optimal_E_direct"][1],
+                "smap_theta": out["smap_theta_direct"]}
+        wd = tempfile.mkdtemp(prefix="world_", dir=tmp)
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", SHARDED_CHILD, str(r), "4", wd,
+             *(str(v) for v in (N_SERIES, LENGTH, SEED, E_MAX, E_FIXED))],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(4)]
+        results = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=CHILD_TIMEOUT_S)
+                results.append((p.returncode, o, e))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        child = {}
+        for r, (rc, o, e) in enumerate(results):
+            if rc != 0:
+                fail(f"sharded rank {r} exited {rc}: {e[-2000:]}")
+            for line in o.splitlines():
+                if line.startswith('{"sharded_child"'):
+                    child[r] = json.loads(line)["sharded_child"]
+        if sorted(child) != [0, 1, 2, 3]:
+            fail(f"sharded ranks printed no record: {sorted(child)}")
+        # A rank whose share of an E-group is one target solves one
+        # right-hand side, which the solve may round on another path.
+        split_rhs = RHO_ATOL
+        ranks_vs_one = {}
+        for r in range(4):
+            got = np.load(os.path.join(wd, f"rank{r}.npz"))
+            ranks_vs_one[r] = {
+                name: agreement(np, got[name], want,
+                                split_rhs if name == "xmap_smap" else 0.0)
+                for name, want in ref_.items()}
+            for name, c in ranks_vs_one[r].items():
+                if not c["within"]:
+                    fail(f"sharded rank {r}: {name} against the world of "
+                         f"one: {c}")
+        summed = {}
+        for c in child.values():
+            for n, v in c["launches"].items():
+                summed[n] = summed.get(n, 0) + v
+        rec["four_ranks"] = {
+            "backend": "gloo", "meshes": ["(2, 2) data×model", "(4,) data"],
+            "padded_rows": child[0]["padded_rows"],
+            "rank0_seconds": child[0]["seconds"], "parent_wall_s": wall,
+            "seconds_by_rank": {r: c["seconds"] for r, c in child.items()},
+            "launches_summed": summed, "vs_world_of_one": ranks_vs_one}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, launches
+
+
 def run_serving_path(torch, np, root, EDM, reset_counts, counts, set_counts):
     """The EDM server (``repro_torch.serving``) on the card at Fish1_Normo's
     shape: ``EDMServer(workers=4)`` with the panel (E_max = 20, cached);
@@ -2531,6 +2832,12 @@ def main() -> None:
     print(smi)
     print(json.dumps({"serving_path": serving_out}))
 
+    # --------------------------------------------- 11. sharded path
+    sharded_out, sharded_launches = run_sharded_path(
+        torch, np, panel, root, X, E_opt, EDM, core, reset_counts, counts)
+    print(smi)
+    print(json.dumps({"sharded_path": sharded_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -2539,6 +2846,7 @@ def main() -> None:
     for r in rows_out:
         r["launches"] = path_of.get(r["name"], slice_launches)[r["name"]]
         r["serving_launches"] = serving_launches[r["name"]]
+        r["sharded_launches"] = sharded_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

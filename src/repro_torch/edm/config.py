@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.core.embedding import num_embedded, pred_rows
 from repro_torch.core.smap_engine import DEFAULT_THETAS
 from repro_torch.kernels import ops
@@ -42,7 +44,16 @@ class EDMConfig:
     device:   torch device of the session's tensors. "cuda" (default)
               raises at bind time when CUDA is absent; nothing falls back
               to the CPU unless ``device="cpu"`` is asked for.
-    mesh:     sharded placement — not ported yet (must stay ``None``).
+    mesh:     a ``torch.distributed.device_mesh.DeviceMesh`` with named
+              dims (``distributed.make_ccm_mesh``) routes ``optimal_E``,
+              ``smap`` and ``xmap`` through the zero-collective sharded
+              engines of ``distributed.sharded_ccm``; every rank binds the
+              same panel and calls the same methods. ``None`` stays local.
+              Its device type must be ``device``'s.
+    lib_axes / tgt_axes: mesh axis names of the library / target
+              decomposition (matching ``distributed.sharded_ccm``).
+    pad:      auto-pad panels to mesh multiples (``False`` = reject
+              panels the mesh does not divide evenly).
     cache:    hold the kNN master / E_opt in the session for reuse.
     on_invalid: NaN/Inf/constant-series policy ("raise" | "mask" |
               "drop", see ``edm.dataset.Dataset``).
@@ -51,8 +62,11 @@ class EDMConfig:
               snapshot (``None``: about 8 a group), halve-B rungs on OOM,
               and straggler factor over the rolling median
               (``edm.runner.MatrixRunner``).
-    run_tile_rows: library rows per journal tile of the sharded path
-              (validated; the sharded path is not ported yet).
+    run_tile_rows: journal tile height (library rows) of a sharded
+              ``xmap(run_dir=...)``: the mesh path runs one sharded matrix
+              call per chunk of library rows so completed chunks persist;
+              ``None`` auto-sizes about 8 tiles, rounded up to the lib-shard
+              count. Local runs tile at the engine's batch B and ignore it.
     """
 
     E: int | None = None
@@ -70,6 +84,9 @@ class EDMConfig:
     impl: str = "auto"
     device: str = "cuda"
     mesh: Any = None
+    lib_axes: tuple[str, ...] = ("data",)
+    tgt_axes: tuple[str, ...] = ("model",)
+    pad: bool = True
     cache: bool = True
     on_invalid: str = "raise"
     checkpoint_keep: int = 3
@@ -133,10 +150,26 @@ class EDMConfig:
             raise ValueError(
                 f"straggler_threshold must be > 0, got "
                 f"{self.straggler_threshold}")
+        object.__setattr__(self, "lib_axes", tuple(self.lib_axes))
+        object.__setattr__(self, "tgt_axes", tuple(self.tgt_axes))
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded placement) is not ported yet: ROADMAP "
-                "queue 1, item 9 (Sharding)")
+            self._check_mesh()
+
+    def _check_mesh(self) -> None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(self.mesh, DeviceMesh):
+            raise ValueError(
+                f"mesh must be a torch.distributed DeviceMesh "
+                f"(distributed.make_ccm_mesh), got {type(self.mesh).__name__}")
+        names = tuple(self.mesh.mesh_dim_names or ())
+        for ax in self.lib_axes + self.tgt_axes:
+            if ax not in names:
+                raise ValueError(f"mesh has axes {names}, missing {ax!r}")
+        if self.mesh.device_type != torch.device(self.device).type:
+            raise ValueError(
+                f"a {self.mesh.device_type} mesh for device={self.device!r}: "
+                f"the mesh's device type must be the session's")
 
     # ------------------------------------------------------------ derived
 
@@ -151,6 +184,10 @@ class EDMConfig:
         ``extra_slack``."""
         return max(1, self.Tp, self.Tp_cross) + self.extra_slack
 
+    def mesh_axis_size(self, axes: tuple[str, ...]) -> int:
+        from repro_torch.distributed.sharded_ccm import mesh_axes_size
+        return mesh_axes_size(self.mesh, axes)
+
     # --------------------------------------------------------- validation
 
     def validate_panel(self, N: int, L: int) -> None:
@@ -162,6 +199,13 @@ class EDMConfig:
             raise ValueError(
                 f"k={self.k} exceeds the {rows} prediction rows of an "
                 f"(L={L}, E={E_chk}, tau={self.tau}, Tp={self.Tp}) panel")
+        if self.mesh is not None and not self.pad:
+            for axes in (self.lib_axes, self.tgt_axes):
+                size = self.mesh_axis_size(axes)
+                if N % size != 0:
+                    raise ValueError(
+                        f"mesh axes {axes} (size {size}) do not divide the "
+                        f"{N}-series panel; pass pad=True or pad the panel")
 
     def replace(self, **changes) -> "EDMConfig":
         """A copy with ``changes`` applied (and re-validated)."""

@@ -39,7 +39,7 @@ class Plan:
 
     task: str              # "optimal_E" | "simplex" | "ccm" | "xmap"
     impl: str              # "cuda" (kernels) | "ref" (plain versions)
-    placement: str         # "local" (the only placement ported)
+    placement: str         # "local" | "sharded"
     E: str                 # "fixed:<n>" | "per-series" | "sweep:1..<E_max>"
     Tp: int
     reuse: tuple[str, ...]  # session cache keys this plan reads

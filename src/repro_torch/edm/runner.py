@@ -36,6 +36,15 @@ Journal format (everything lives under ``run_dir``):
   flags (``StragglerMonitor`` over the engine launch timings), the OOM
   backoff decision trail, and the dataset's invalid-series records.
 
+A mesh run (``EDMConfig(mesh=...)``) has one runner on every rank: rank 0
+alone owns ``run_dir`` (the lock, the manifest, the snapshots and the
+report) and broadcasts its resume point; every rank drives the same tiles,
+holds the same rows in memory, and at each tile boundary the ranks agree
+(one all-reduce of two flags) on going on or preempting, so a preemption
+or a failed commit stops every rank at the same tile. An out-of-memory
+error reaches every rank from the same tile (the sharded engines agree
+before they deliver), so every rank takes the same rung of the ladder.
+
 Correctness contract: tiles are committed only after their rows have
 landed on the host (``.cpu()``, which waits for the device), done-ness is tracked per *library row* (so the
 tile shape may change across resumes — the engines are bit-invariant
@@ -90,9 +99,10 @@ PREEMPTED_EXIT = 17
 #: from the plain versions' in the last bits, so a journal begun on one
 #: and resumed on the other would mix rows. Deliberately excluded:
 #: perf-only knobs (batch_libs, batch_budget_mb, checkpoint_*,
-#: oom_retries, run_tile_rows, straggler_threshold) — results are
+#: oom_retries, run_tile_rows, pad, straggler_threshold) — results are
 #: invariant in them, so resuming with a different batch size or snapshot
-#: cadence is legal.
+#: cadence is legal — and the mesh object itself (its dim names and sizes
+#: and the lib/tgt axes are keyed separately).
 KEYED_CONFIG_FIELDS = ("E", "E_max", "tau", "Tp", "Tp_cross", "theta",
                        "thetas", "k", "extra_slack", "ridge", "impl",
                        "cache", "on_invalid", "device")
@@ -110,6 +120,10 @@ def config_fingerprint(config) -> str:
         if f == "device":
             v = torch.device(v).type
         parts.append(f"{f}={v!r}")
+    mesh = config.mesh
+    if mesh is not None:
+        parts.append(f"mesh={tuple(zip(mesh.mesh_dim_names, mesh.shape))!r}"
+                     f"/lib={config.lib_axes!r}/tgt={config.tgt_axes!r}")
     return ";".join(parts)
 
 
@@ -210,6 +224,8 @@ class MatrixRunner:
     session resolves the task into tile groups — per-E-group for the
     local engines, one lib-chunked group for the sharded path — and
     calls ``drive_group`` per group between ``start()``/``finalize()``.
+    ``mesh``: the ``DeviceMesh`` of a mesh run, on every rank of which the
+    session builds a runner (only rank 0's ``writes`` the journal).
     See the module docstring for the journal format and the guarantees.
     """
 
@@ -217,18 +233,21 @@ class MatrixRunner:
                  shape: tuple[int, int], groups_sig,
                  keep: int = 3, checkpoint_every: int | None = None,
                  oom_retries: int = 4, invalid_series=(),
-                 straggler_threshold: float = 2.0):
+                 straggler_threshold: float = 2.0, mesh=None):
+        self.mesh = mesh
+        self.writes = mesh is None or torch.distributed.get_rank() == 0
         self.dir = os.path.abspath(run_dir)
-        os.makedirs(self.dir, exist_ok=True)
         self.key = key
         self.shape = tuple(int(s) for s in shape)
         self.groups_sig = [[int(E), int(n)] for E, n in groups_sig]
         self.checkpoint_every = (None if checkpoint_every is None
                                  else int(checkpoint_every))
         self.oom_retries = int(oom_retries)
-        self.ckpt = CheckpointManager(os.path.join(self.dir, "state"),
-                                      keep=keep)
-        self.heartbeat = Heartbeat(os.path.join(self.dir, "heartbeat"))
+        self.ckpt = self.heartbeat = None
+        if self.writes:
+            self.ckpt = CheckpointManager(os.path.join(self.dir, "state"),
+                                          keep=keep)
+            self.heartbeat = Heartbeat(os.path.join(self.dir, "heartbeat"))
         self.monitor = StragglerMonitor(threshold=straggler_threshold)
         self.oom_trail: list[dict] = []
         self.invalid_series = list(invalid_series)
@@ -245,14 +264,21 @@ class MatrixRunner:
         self.prior_attempts: list[dict] = []
         self._sink: telemetry.JsonlSink | None = None
         self._lock = None
-        self._acquire_lock()
+        self._status = "running"
+        failed = None
         try:
-            self._load_manifest()
-        except BaseException:
+            if self.writes:
+                self._acquire_lock()
+                self._load_manifest()
+        except BaseException as e:
             self._release_lock()
-            raise
+            if mesh is None:
+                raise
+            failed = e
+        if mesh is not None:
+            self._join_rank0(failed)
         self._pairs_resumed = self._pairs_done()
-        if not self.complete:
+        if self.writes and not self.complete:
             # One JSONL event log per journaled run, shared across
             # attempts (append mode): every span/event emitted anywhere
             # in the process while this runner is live lands here.
@@ -294,6 +320,48 @@ class MatrixRunner:
             fcntl.flock(self._lock, fcntl.LOCK_UN)
             self._lock.close()
             self._lock = None
+
+    # ---------------------------------------------------------- mesh runs
+
+    def _join_rank0(self, failed) -> None:
+        """Every rank of a mesh run: hear whether rank 0 opened the
+        journal, then take its state (the rows a snapshot holds, and
+        whether the run is complete) so that every rank resumes at the
+        same row with the same matrix."""
+        from repro_torch.distributed.sharded_ccm import _agree, _from_rank0
+
+        if _agree([failed is not None])[0]:
+            if failed is not None:
+                raise failed
+            raise RuntimeError(f"rank 0 could not open the journal under "
+                               f"{self.dir}")
+        rho, done, status = _from_rank0(
+            self.state.rho, self.state.done.astype(np.uint8),
+            np.asarray([self.complete], np.uint8))
+        if not self.writes:
+            self.state.rho = rho
+            self.state.done = done.astype(bool)
+            self._status = "complete" if status[0] else "running"
+            self.resumed_rows = self.state.rows_done
+
+    def _stop_requested(self, failed=None) -> bool:
+        """Preempt at this tile boundary? Re-raises a failed commit. On a
+        mesh run the ranks agree first (one all-reduce), so every rank
+        stops, or fails, at the same tile."""
+        requested = self._guard is not None and self._guard.requested
+        if self.mesh is None:
+            if failed is not None:
+                raise failed
+            return requested
+        from repro_torch.distributed.sharded_ccm import _agree
+
+        stop, any_failed = _agree([requested, failed is not None])
+        if failed is not None:
+            raise failed
+        if any_failed:
+            raise RuntimeError("rank 0 failed to commit a tile of the "
+                               "journal")
+        return bool(stop)
 
     # ---------------------------------------------------- manifest/journal
 
@@ -348,6 +416,8 @@ class MatrixRunner:
                 "elapsed_s": round(time.monotonic() - self._t0, 3)}
 
     def _write_manifest(self) -> None:
+        if not self.writes:
+            return
         tmp = self._manifest_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"key": self.key, "shape": list(self.shape),
@@ -362,11 +432,11 @@ class MatrixRunner:
         holds is not written again: rows are committed once, so an equal
         row count is an equal state."""
         step = self.state.rows_done
-        if step != self._saved_step:
+        if self.writes and step != self._saved_step:
             self.ckpt.save(step, self.state.tree())
             self._saved_step = step
         self._since_snapshot = 0
-        if report:
+        if report and self.writes:
             # refresh the report on every snapshot so the run inspector
             # (python -m repro_torch.edm.inspect) sees live progress, not
             # just the terminal states
@@ -432,15 +502,20 @@ class MatrixRunner:
             telemetry.counter("edm_tiles_committed").inc()
             telemetry.event("tile.commit", group=g, a=a, b=b,
                             rows_done=self.state.rows_done)
-            self.heartbeat.beat(self.state.rows_done)
-            # auto cadence: ~8 snapshots per group — bounds journal I/O
-            # to a few % of engine time on many-tile runs while a
-            # preemption still snapshots immediately (below); only a
-            # hard crash redoes up to cadence − 1 tiles.
-            every = cadence or max(1, -(-(-(-Nl // B)) // 8))
-            if self._since_snapshot >= every:
-                self._snapshot()
-            if self._guard is not None and self._guard.requested:
+            failed = None
+            try:
+                if self.writes:
+                    self.heartbeat.beat(self.state.rows_done)
+                # auto cadence: ~8 snapshots per group — bounds journal
+                # I/O to a few % of engine time on many-tile runs while a
+                # preemption still snapshots immediately (below); only a
+                # hard crash redoes up to cadence − 1 tiles.
+                every = cadence or max(1, -(-(-(-Nl // B)) // 8))
+                if self._since_snapshot >= every:
+                    self._snapshot()
+            except Exception as e:  # noqa: BLE001 — re-raised after agreeing
+                failed = e
+            if self._stop_requested(failed):
                 self._preempt()
 
         while True:
@@ -516,6 +591,8 @@ class MatrixRunner:
     # ------------------------------------------------------------- report
 
     def write_report(self) -> dict:
+        if not self.writes:
+            return {}
         rows_total = int(self.state.done.size)
         elapsed = time.monotonic() - self._t0
         pairs_done = self._pairs_done()

@@ -27,8 +27,15 @@ grows the panel and a cached master in one merge launch
 
 ``xmap(run_dir=...)`` journals the matrix run through
 ``edm.runner.MatrixRunner``: resumable, preemptible, and halving its batch
-on a CUDA out-of-memory error. Sharded placement (``mesh=``) is not
-ported yet: ``EDMConfig`` raises naming its ROADMAP item.
+on a CUDA out-of-memory error.
+
+A ``mesh=`` in the config (a ``DeviceMesh``, ``distributed.make_ccm_mesh``)
+routes ``optimal_E``, ``smap`` and ``xmap`` through the zero-collective
+sharded engines of ``distributed.sharded_ccm``: every rank binds the same
+panel, calls the same methods, computes its own block and gets the same
+results. Such a session holds no master; ``simplex``, ``ccm``,
+``ccm_batch`` and ``surrogate_test`` run the per-series engines locally on
+every rank.
 """
 
 from __future__ import annotations
@@ -174,22 +181,25 @@ class EDM:
     def plan(self, task: str, *, E=None) -> Plan:
         """The Plan a method call would execute (introspection)."""
         c = self.config
-        cached = c.cache
+        sharded = c.mesh is not None
+        placement = "sharded" if sharded else "local"
+        cached = c.cache and not sharded
         have_master = "master" in self._cache
         have_rho = "rho" in self._cache
         impl = self.impl_name
         if task == "optimal_E":
             return Plan(
-                task=task, impl=impl, placement="local",
+                task=task, impl=impl, placement=placement,
                 E=f"sweep:1..{c.E_max}", Tp=c.Tp,
                 reuse=(("rho",) if have_rho else
                        ("master",) if (cached and have_master) else ()),
                 builds=() if have_rho else (
                     ("master", "rho") if cached else ("rho",)),
-                detail=("derive per-E tables from kNN master" if cached
+                detail=("sharded_optimal_E" if sharded else
+                        "derive per-E tables from kNN master" if cached
                         else "per-series optimal_E_batch, one multi-E "
                              "launch per series"))
-        if task == "simplex":
+        if task == "simplex":  # local on a mesh too, without a master
             fixed = E or c.E
             if not fixed:
                 reuse, detail = ("rho",), "skill read off the cached ρ(E) sweep"
@@ -223,22 +233,25 @@ class EDM:
                 covered or self.stats["xmap_direct_runs"] > 0
                 or not (c.E or have_rho))
             return Plan(
-                task=task, impl=impl, placement="local",
+                task=task, impl=impl, placement=placement,
                 E=f"fixed:{c.E}" if c.E else "per-series", Tp=c.Tp_cross,
                 reuse=(("master",) if (cached and covered) else ()) + (
                     () if c.E else ("rho",)),
                 builds=(("master",) if (master_next and not covered)
                         else ()) + (() if (c.E or have_rho) else ("rho",)),
-                detail=("library-batched lookups on cached kNN master"
+                detail=("E-grouped sharded matrix, zero collectives"
+                        if sharded else
+                        "library-batched lookups on cached kNN master"
                         if master_next
                         else "library-batched direct engine, ceil(N/B) "
                              "launches per E-group"))
         if task == "smap":
             return Plan(
-                task=task, impl=impl, placement="local",
+                task=task, impl=impl, placement=placement,
                 E=f"fixed:{E or c.E}" if (E or c.E) else "per-series",
                 Tp=c.Tp, reuse=() if (E or c.E) else ("rho",), builds=(),
-                detail="batched Gram engine per E-group")
+                detail="sharded_smap_theta per E-group" if sharded
+                else "batched Gram engine per E-group")
         raise ValueError(f"unknown task {task!r}")
 
     # ------------------------------------------------------------ caches
@@ -339,7 +352,17 @@ class EDM:
 
     def _run_optimal_E(self) -> tuple[np.ndarray, np.ndarray]:
         c = self.config
-        if c.cache:
+        if c.mesh is not None:
+            from repro_torch.distributed.sharded_ccm import (
+                _agreed, gather_host, pad_to_multiple, sharded_optimal_E)
+            Xp = pad_to_multiple(self.data.panel,
+                                 c.mesh_axis_size(c.lib_axes))
+            E_dt, rho_dt = _agreed(lambda: sharded_optimal_E(
+                Xp, E_max=c.E_max, tau=c.tau, Tp=c.Tp, mesh=c.mesh,
+                axes=c.lib_axes, impl=self._impl))
+            E_opt = gather_host(E_dt)[: self.data.N]
+            rho = gather_host(rho_dt)[: self.data.N]
+        elif c.cache:
             dM, iM, _, _ = self._master(c.E_max)
             rho = rho_curves_from_master(
                 self.data.panel, dM[:, :c.E_max], iM[:, :c.E_max],
@@ -387,7 +410,7 @@ class EDM:
             if E is None:
                 E_opt, rho = self._rho()
                 return rho[np.arange(self.data.N), E_opt - 1].copy()
-            if not c.cache:
+            if not c.cache or c.mesh is not None:
                 return self._mask_rows(torch.stack([
                     simplex_skill(x, E=E, tau=c.tau, Tp=c.Tp,
                                   impl=self._impl)
@@ -423,6 +446,16 @@ class EDM:
 
     def _smap_group_sweep(self, E, members, thetas) -> np.ndarray:
         c = self.config
+        if c.mesh is not None:
+            from repro_torch.distributed.sharded_ccm import (
+                _agreed, gather_host, pad_members, sharded_smap_theta)
+            padded = pad_members(np.asarray(members),
+                                 c.mesh_axis_size(c.lib_axes))
+            X = self.data.panel[torch.as_tensor(padded, device=self.device)]
+            rho = _agreed(lambda: sharded_smap_theta(
+                X, E=E, tau=c.tau, Tp=c.Tp, thetas=thetas, ridge=c.ridge,
+                mesh=c.mesh, axes=c.lib_axes, impl=self._impl))
+            return gather_host(rho)[: len(members)]
         X = self.data.panel[torch.as_tensor(members, device=self.device)]
         return smap_theta_sweep(X, E=E, tau=c.tau, Tp=c.Tp, thetas=thetas,
                                 ridge=c.ridge,
@@ -488,7 +521,7 @@ class EDM:
         caps, inv = normalize_lib_sizes(lib_sizes, Lp=Lp, Tp=c.Tp_cross)
         k = E + 1
         hit = self._cache.get("master")
-        if (c.cache and hit is not None and hit[3] >= E
+        if (c.cache and c.mesh is None and hit is not None and hit[3] >= E
                 and master_slack_covers(caps, Lp=Lp, k=k, k_master=hit[2])):
             self._bump("knn_master_hits")
             curves = ccm_convergence_from_master(
@@ -567,7 +600,7 @@ class EDM:
         Lp = num_embedded(self.data.L, E, c.tau)
         cap = Lp - max(c.Tp_cross, 0)
         k = E + 1
-        hit = self._master(E) if c.cache else None
+        hit = self._master(E) if c.cache and c.mesh is None else None
         if hit is None or not master_slack_covers(
                 (cap,), Lp=Lp, k=k, k_master=hit[2]):
             for j, li, ti in live:
@@ -621,12 +654,17 @@ class EDM:
         N = self.data.N
         with telemetry.span("session.xmap", method=method, N=N,
                             journaled=run_dir is not None,
-                            placement="local"):
+                            placement=("sharded" if c.mesh is not None
+                                       else "local")):
             self._plan_event("xmap")
             if E_opt is None:
                 E_opt = np.full(N, c.E, np.int32) if c.E else self._rho()[0]
             E_opt, groups = _e_groups(E_opt, N)
-            rho = self._xmap_local(method, groups, theta, run_dir, E_opt)
+            if c.mesh is not None:
+                rho = self._xmap_sharded(method, E_opt, theta, run_dir)
+            else:
+                rho = self._xmap_local(method, groups, theta, run_dir,
+                                       E_opt)
         return self._mask_matrix(rho)
 
     def _xmap_group_launch(self, method, E, members, theta, iM):
@@ -698,6 +736,50 @@ class EDM:
             rho[:, members] = drive_batched(N, B, launch)
         return rho
 
+    def _xmap_sharded(self, method, E_opt, theta,
+                      run_dir=None) -> np.ndarray:
+        """Mesh all-pairs matrix: one E-grouped sharded matrix call (each
+        rank its block, one gather at delivery).
+
+        Journaled, the library rows are cut into chunks of
+        ``run_tile_rows`` rounded up to full lib shards (by default about
+        8 chunks), each chunk one sharded call through the same
+        ``MatrixRunner`` (rows are independent, so chunking keeps the
+        bits), with the E-group target layout computed once.
+        """
+        from repro_torch.distributed.sharded_ccm import (
+            _egroup_layout, sharded_ccm_matrix, sharded_smap_matrix)
+        c = self.config
+        X = self.data.panel
+        N = self.data.N
+
+        def matrix(X_lib, layout=None):
+            if method == "smap":
+                return sharded_smap_matrix(
+                    X_lib, X, E_opt=E_opt, tau=c.tau, Tp=c.Tp_cross,
+                    theta=float(c.theta if theta is None else theta),
+                    ridge=c.ridge, mesh=c.mesh, lib_axes=c.lib_axes,
+                    tgt_axes=c.tgt_axes, impl=self._impl, layout=layout)
+            return sharded_ccm_matrix(
+                X_lib, X, E_opt=E_opt, tau=c.tau, Tp=c.Tp_cross,
+                mesh=c.mesh, lib_axes=c.lib_axes, tgt_axes=c.tgt_axes,
+                impl=self._impl, batch_libs=c.batch_libs,
+                batch_budget_mb=c.batch_budget_mb, layout=layout)
+
+        if run_dir is None:
+            return matrix(X)
+        S_l = c.mesh_axis_size(c.lib_axes)
+        layout = _egroup_layout(torch.as_tensor(E_opt, device=self.device),
+                                c.mesh_axis_size(c.tgt_axes))
+        tile = c.run_tile_rows or max(S_l, -(-N // 8))
+        tile = -(-int(tile) // S_l) * S_l  # round up to full lib shards
+
+        def launch(a, b, B):
+            return torch.from_numpy(matrix(X[a:b], layout=layout))
+
+        return self._run_journaled(run_dir, method, theta,
+                                   [(0, np.arange(N), launch, tile)], E_opt)
+
     def _run_journaled(self, run_dir, method, theta, entries,
                        E_opt) -> np.ndarray:
         """Drive xmap tile groups through a journaled ``MatrixRunner``."""
@@ -719,7 +801,7 @@ class EDM:
             keep=c.checkpoint_keep, checkpoint_every=c.checkpoint_every,
             oom_retries=c.oom_retries,
             invalid_series=self.data.invalid_report,
-            straggler_threshold=c.straggler_threshold)
+            straggler_threshold=c.straggler_threshold, mesh=c.mesh)
         if runner.complete:
             # Finished journal: the stored matrix IS the result — zero
             # engine launches (restart loops may re-run unconditionally).

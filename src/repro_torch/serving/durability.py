@@ -378,10 +378,13 @@ class PanelLog:
         base = np.load(os.path.join(self.pdir, "base.npy"))
         fields = {k: v for k, v in meta["config"].items() if k != "mesh"}
         unknown = sorted(set(fields) - set(EDMConfig.__dataclass_fields__))
-        if unknown:
+        # This package writes ``device`` with every config; ``repro`` never.
+        if unknown or "device" not in fields:
+            what = (f"fields {unknown} are" if unknown
+                    else "names no device, so it is")
             raise WalError(
-                f"panel {meta['name']!r}: config fields {unknown} are not "
-                f"this package's — the state dir was written by another "
+                f"panel {meta['name']!r}: its config {what} not this "
+                f"package's — the state dir was written by another "
                 f"package")
         config = EDMConfig(**fields)
         fp = panel_fingerprint(base, config)

@@ -1010,3 +1010,34 @@ def test_recovered_server_equals_the_uninterrupted_one_on_the_card(
     finally:
         rec.close()
 
+
+
+def test_world_of_one_cuda_mesh_session_equals_the_local_session():
+    """``EDMConfig(mesh=...)`` on a CUDA world of one (NCCL, started by
+    ``make_ccm_mesh``): the sharded engines run the same kernels on the
+    same blocks as a ``cache=False`` local session, so the bits agree."""
+    import torch.distributed as dist
+    from repro_torch.distributed import make_ccm_mesh
+    from repro_torch.edm import EDM
+    panel = _cuda_panel(N=7, L=300).cpu().numpy()
+    mesh = make_ccm_mesh((1, 1), ("data", "model"))
+    try:
+        sess = EDM(panel, E_max=6, mesh=mesh)
+        local = EDM(panel, E_max=6, cache=False)
+        for got, want in zip(sess.optimal_E(), local.optimal_E()):
+            np.testing.assert_array_equal(got, want)
+        for method in ("simplex", "smap"):
+            np.testing.assert_array_equal(sess.xmap(method=method),
+                                          local.xmap(method=method))
+        np.testing.assert_array_equal(sess.smap(), local.smap())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_of_two_without_a_process_group_raises():
+    import torch.distributed as dist
+    from repro_torch.distributed import make_ccm_mesh
+    _cuda_panel(N=2, L=50)  # skips without CUDA
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_ccm_mesh((2,), ("data",))

@@ -169,13 +169,21 @@ def test_dataset_defaults_to_the_card_and_raises_without_cuda(monkeypatch):
     assert sess.data is ds and sess.device.type == "cpu"
 
 
-def test_unported_methods_raise_naming_roadmap():
+def test_mesh_config_refusals_and_append():
     panel = _panel(4)
     sess = EDM(panel[:, :190], E_max=E_MAX, device="cpu")
-    calls = [lambda: EDMConfig(mesh=object())]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # mesh= is ported: what is not a DeviceMesh, or a mesh without the
+    # config's axes, raises ValueError (tests/test_torch_sharded*.py run it)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        EDMConfig(mesh=object(), device="cpu")
+    from torch import distributed as dist
+    from repro_torch.distributed import make_ccm_mesh
+    mesh = make_ccm_mesh((1,), ("data",), device_type="cpu")
+    try:
+        with pytest.raises(ValueError, match="missing 'model'"):
+            EDMConfig(mesh=mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
     # append is ported: it grows the panel as the reference's does.
     js = JEDM(panel[:, :190], impl="ref", E_max=E_MAX)
     assert sess.append(panel[:, 190:]) == js.append(panel[:, 190:]) == []
