@@ -154,6 +154,26 @@ phase passed; any failure exits nonzero. Phases:
    rank's results against (a)'s, rank 0's wall seconds and the launches
    summed over the ranks. It checks code paths, not scaling: four ranks
    share one card. The process groups end before the last line.
+12. LM serving path — the LM substrate (``repro_torch.models``,
+   ``repro_torch.serving.ServeEngine``) in plain eager PyTorch, which
+   launches none of the EDM kernels (their counts are read: 0 each).
+   (a) llama3-8b as configured (32 layers, d_model 4,096, vocab 128,256,
+   bf16 over float32 parameters, random weights from a seeded generator
+   on the card): ``init_params`` seconds and peak memory;
+   ``ServeEngine(s_max=128).generate`` of 4 prompts of 3–9 tokens (numpy
+   seed 0), 32 new tokens, greedy, twice with identical tokens; tokens/s,
+   the decode step's median ms beside its bytes bound (parameters + KV
+   cache at 3.35 TB/s) and the bytes it moves as written, device busy
+   time and idle share of a ``generate``, peak memory; the decode path's
+   logits at every position of a prompt against ``forward_train``'s, and
+   a 2,048-token prefill (the chunked path) against the full S×S path,
+   both within ``LM_BF16_ATOL``. (b) The ten smoke archs: weights made on
+   the CPU and loaded onto the card; ``forward_train`` logits, MoE aux,
+   ``loss_fn`` and ``decode_step`` logits within ``LM_SMOKE_TOL`` of the
+   CPU port's (TF32 off), gradients finite and non-zero after
+   ``backward()`` on the card; for llama3-8b, deepseek-v2-lite-16b,
+   jamba-v0.1-52b and xlstm-125m greedy decode of 8 tokens equal to the
+   parallel forward's argmax (dropless MoE).
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -217,6 +237,21 @@ SERVE_TICK_PAIRS = 16     # this many of the pairs again,
 SERVE_SUB_PAIRS = 4       # the watch list of one subscription,
 SERVE_BUDGET = 1.5        # the master budget, in masters (two panels),
 SERVE_KILL_TICKS = 6      # the durable child's Δt = 1 ticks (killed at 2)
+LM_ARCH = "llama3-8b"      # the LM path at full width, as configured
+LM_PROMPTS = 4            # prompts of 3–9 tokens (numpy seed 0, as the
+LM_MAX_NEW = 32           # serve launcher), this many new tokens each,
+LM_S_MAX = 128            # in caches of this length
+LM_STEPS_TIMED = 40       # decode steps timed one by one
+LM_PREFILL_S = 2048       # one prompt through the chunked prefill
+LM_MATCH_TOKENS = 8       # greedy tokens held to the parallel forward
+# The LM path in bfloat16 at 32 layers: the decode path (one row a step)
+# and the parallel forward (all rows at once), and the chunked and the full
+# prefill (float32 online softmax against probabilities cast to bf16 before
+# the value product), round in different places; their logits (std ≈ 0.9,
+# |max| ≈ 4 at init) may differ by this much.
+LM_BF16_ATOL = 0.25
+# The smoke archs, float32 with TF32 off: the card against the CPU port.
+LM_SMOKE_TOL = 1e-4
 
 # A child process of the journal phase: ``kill`` runs the direct journaled
 # xmap at B and delivers SIGTERM to itself at its second engine launch
@@ -2356,6 +2391,312 @@ def run_serving_path(torch, np, root, EDM, reset_counts, counts, set_counts):
     return out, launches
 
 
+def lm_full_config():
+    """The LM path's model: ``LM_ARCH`` as configured (llama3-8b: 32
+    layers, d_model 4,096, 32/8 heads, d_ff 14,336, vocab 128,256, bf16
+    activations over float32 parameters), no layer cut."""
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
+def lm_prompts(np, vocab):
+    """The serve launcher's prompts: ``LM_PROMPTS`` of 3–9 tokens, seed 0."""
+    rng = np.random.default_rng(0)
+    return [list(map(int, rng.integers(0, vocab, int(rng.integers(3, 10)))))
+            for _ in range(LM_PROMPTS)]
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def lm_greedy_matches_forward(torch, pm, ServeEngine, cfg, model, prompt,
+                              dev):
+    """Greedy decode of ``LM_MATCH_TOKENS`` tokens through the engine, then
+    the parallel forward over prompt + output: every generated token is the
+    forward's argmax at the position before it (a top-two gap under
+    ``LM_SMOKE_TOL`` excused), and a teacher-forced decode's logits are the
+    forward's within ``LM_SMOKE_TOL``. Returns (max |Δlogit|, near-ties)."""
+    res = ServeEngine(cfg, model, s_max=32).generate(
+        [prompt], max_new=LM_MATCH_TOKENS)
+    seq = res.tokens[0]
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full, _ = pm.forward_train(model, cfg, {"tokens": toks})
+        cache = pm.init_cache(cfg, 1, len(seq), device=dev)
+        err = 0.0
+        for t in range(len(seq)):
+            lg, cache = pm.decode_step(model, cfg, toks[:, t:t + 1], cache, t)
+            err = max(err, float((lg[0, 0] - full[0, t]).abs().max()))
+    ties = 0
+    for t in range(len(prompt) - 1, len(seq) - 1):
+        top2 = torch.topk(full[0, t], 2).values
+        if int(full[0, t].argmax()) != seq[t + 1]:
+            if float(top2[0] - top2[1]) >= LM_SMOKE_TOL:
+                fail(f"{cfg.name}: greedy token {t + 1} is {seq[t + 1]}, the "
+                     f"parallel forward's argmax {int(full[0, t].argmax())}")
+            ties += 1
+    if not err <= LM_SMOKE_TOL:
+        fail(f"{cfg.name}: decode logits differ from the forward's by {err}")
+    return err, ties
+
+
+def run_lm_path(torch, np, dev, reset_counts, counts):
+    """The LM substrate's serving half (``repro_torch.models``,
+    ``repro_torch.serving.ServeEngine``) on the card, plain eager PyTorch
+    (none of the EDM kernels; their counts must stay 0). (a) llama3-8b at
+    full width: ``init_params`` on the card, ``ServeEngine(s_max=128)``
+    generating 32 tokens for 4 prompts twice (identical tokens), decode
+    steps timed beside their bytes bound, the decode path's logits at every
+    position of a prompt against ``forward_train``'s, and one 2,048-token
+    prefill on the chunked path against the full S×S path, all within
+    ``LM_BF16_ATOL``. (b) the ten smoke archs: weights made on the CPU and
+    loaded onto the card; ``forward_train``, ``loss_fn`` and decode logits
+    within ``LM_SMOKE_TOL`` of the CPU port's, gradients finite and
+    non-zero on the card, and greedy decode equal to the parallel
+    forward's argmax for four archs. Returns (record, launches)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import models as pm
+    from repro_torch.configs import ARCHS, SKIP_CELLS, get_config
+    from repro_torch.serving import ServeEngine
+
+    # The smoke archs are float32: with TF32 on, the card's products would
+    # round their operands to 10 mantissa bits and could not be held to the
+    # CPU port at 1e-4. main() turns it off before phase 3; check it is.
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the LM path needs them off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t_phase = time.perf_counter()
+    out = {"arch": LM_ARCH}
+
+    # ------------------------------------------------ (a) full width
+    cfg = lm_full_config()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = host_s(torch, lambda: pm.init_params(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = tree_bytes(list(model.parameters()))
+    out["model"] = {
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "params": n_params,
+        "param_bytes": param_bytes, "init_s": init_s,
+        "init_peak_bytes": torch.cuda.max_memory_allocated() - held}
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters on the card, {cfg.param_count()} in "
+             f"the config")
+
+    prompts = lm_prompts(np, cfg.vocab_size)
+    engine = ServeEngine(cfg, model, s_max=LM_S_MAX)
+    torch.cuda.reset_peak_memory_stats()
+    res1, gen1_s = host_s(torch, lambda: engine.generate(
+        prompts, max_new=LM_MAX_NEW))
+    res2, gen2_s = host_s(torch, lambda: engine.generate(
+        prompts, max_new=LM_MAX_NEW))
+    gen_peak = torch.cuda.max_memory_allocated()
+    if res1.tokens != res2.tokens:
+        fail("two greedy generate runs of the same prompts differ")
+    for p, o in zip(prompts, res1.tokens):
+        if o[:len(p)] != p or len(o) != len(p) + LM_MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"generate gave a malformed row for prompt {p}")
+    # Decode steps timed one by one (CUDA events; host clock beside).
+    t_prof = time.perf_counter()
+    B = len(prompts)
+    cache = pm.init_cache(cfg, B, LM_S_MAX, device=dev)
+    kv_bytes = tree_bytes(cache)
+    tok = torch.tensor([[p[0]] for p in prompts], dtype=torch.int32,
+                       device=dev)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    step_ms, step_host_ms = [], []
+    with torch.no_grad():
+        pm.decode_step(model, cfg, tok, cache, 0)
+        for t in range(1, LM_STEPS_TIMED + 1):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            ev0.record()
+            pm.decode_step(model, cfg, tok, cache, t)
+            ev1.record()
+            torch.cuda.synchronize()
+            step_host_ms.append((time.perf_counter() - h0) * 1e3)
+            step_ms.append(ev0.elapsed_time(ev1))
+    del cache
+    secs = {"timed_steps": time.perf_counter() - t_prof}
+    t0 = time.perf_counter()
+    prof = device_profile(torch, lambda: engine.generate(
+        prompts, max_new=LM_MAX_NEW))
+    secs["profiled_generate"] = time.perf_counter() - t0
+    new_tokens = LM_PROMPTS * LM_MAX_NEW
+    steps = max(map(len, prompts)) + LM_MAX_NEW - 1
+
+    step_bound = bound_ms(param_bytes + kv_bytes, 0.0)
+    layer_bytes = tree_bytes(list(model["units"].parameters()))
+    head_bytes = tree_bytes(list(model["lm_head"].parameters()))
+    out["serve"] = {
+        "batch": B, "prompt_lens": [len(p) for p in prompts],
+        "max_new": LM_MAX_NEW, "s_max": LM_S_MAX, "decode_steps": steps,
+        "generate_s": [gen1_s, gen2_s],
+        "tokens_per_s": new_tokens / gen2_s,
+        "generate_ms_per_step": gen2_s / steps * 1e3,
+        "first_tokens": [o[len(p):len(p) + 8]
+                         for p, o in zip(prompts, res1.tokens)],
+        "peak_bytes": gen_peak, "held_before_bytes": held,
+        "device_profile": prof,
+        "step_ms": {"median": statistics.median(step_ms),
+                    "min": min(step_ms), "max": max(step_ms),
+                    "host_median": statistics.median(step_host_ms),
+                    "steps": len(step_ms)},
+        "step_bound_ms": step_bound[0], "step_bound_by": step_bound[1],
+        "step_bound_bytes": {"params": param_bytes, "kv_cache": kv_bytes},
+        # What the step moves as written: dense() casts each float32 layer
+        # weight to bf16 at use (read 4 B, write 2 B, read 2 B a parameter),
+        # the head reads its float32 table, the embedding only B rows.
+        "step_traffic_bytes": 2 * layer_bytes + head_bytes + kv_bytes}
+
+    # The decode path against the parallel forward, at every position of
+    # the longest prompt.
+    p0 = max(prompts, key=len)
+    toks = torch.tensor([p0], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full, _ = pm.forward_train(model, cfg, {"tokens": toks})
+        cache = pm.init_cache(cfg, 1, len(p0), device=dev)
+        steps_lg = []
+        for t in range(len(p0)):
+            lg, cache = pm.decode_step(model, cfg, toks[:, t:t + 1], cache, t)
+            steps_lg.append(lg[0, 0])
+    steps_lg = torch.stack(steps_lg)
+    errs = (steps_lg - full[0]).abs().amax(-1).tolist()
+    out["decode_vs_forward"] = {
+        "positions": len(p0), "max_abs_err": max(errs), "per_position": errs,
+        "max_abs_logit": float(full.abs().max()),
+        "logit_std": float(full.std()), "tol": LM_BF16_ATOL,
+        "argmax_equal": int((steps_lg.argmax(-1)
+                             == full[0].argmax(-1)).sum())}
+    del cache, full, steps_lg
+    secs["decode_vs_forward"] = (time.perf_counter() - t_prof
+                                 - sum(secs.values()))
+    if not max(errs) <= LM_BF16_ATOL:
+        fail(f"decode logits differ from forward_train's by {max(errs)}")
+
+    # One long prompt: the chunked prefill against the full S×S path.
+    rng = np.random.default_rng(1)
+    long = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LM_PREFILL_S)
+                                        ).astype(np.int32), device=dev)
+    full_cfg = dataclasses.replace(cfg, attn_full_max=2 * LM_PREFILL_S)
+    if not (LM_PREFILL_S > cfg.attn_full_max
+            and LM_PREFILL_S % cfg.attn_chunk_q == 0):
+        fail("the long prefill would not take the chunked path")
+    times = {"chunked": [], "full": []}
+    logits = {}
+    with torch.no_grad():
+        for _ in range(2):
+            for name, c in (("chunked", cfg), ("full", full_cfg)):
+                torch.cuda.reset_peak_memory_stats()
+                (lg, caches), sec = host_s(torch, lambda: pm.prefill(
+                    model, c, {"tokens": long}))
+                times[name].append(sec)
+                logits[name] = lg
+                peak = torch.cuda.max_memory_allocated()
+                del caches
+    err = float((logits["chunked"] - logits["full"]).abs().max())
+    out["prefill"] = {
+        "S": LM_PREFILL_S, "chunk": cfg.attn_chunk_q, "seconds": times,
+        "tokens_per_s": LM_PREFILL_S / times["chunked"][-1],
+        "last_peak_bytes": peak, "max_abs_err": err, "tol": LM_BF16_ATOL,
+        "max_abs_logit": float(logits["full"].abs().max()),
+        "argmax_equal": int(logits["chunked"].argmax())
+        == int(logits["full"].argmax())}
+    if not (torch.isfinite(logits["chunked"]).all() and err <= LM_BF16_ATOL):
+        fail(f"the chunked prefill's logits differ from the full path's by "
+             f"{err}")
+    del model, engine, logits, long
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["prefills"] = time.perf_counter() - t_prof - sum(secs.values())
+    out["full_width_s"] = dict(secs, total=time.perf_counter() - t_phase)
+
+    # ------------------------------------------------ (b) smoke archs
+    t_smoke = time.perf_counter()
+    smoke = {}
+    for arch in ARCHS:
+        scfg = get_config(arch, smoke=True)
+        cpu = pm.init_params(scfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        card = pm.abstract_params(scfg).to_empty(device=dev)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(2)
+        inp = {"labels": rng.integers(0, scfg.vocab_size, (2, 16))}
+        if scfg.embed_inputs:
+            inp["embeds"] = rng.normal(size=(2, 16, scfg.d_model)).astype(
+                np.float32)
+        else:
+            inp["tokens"] = rng.integers(0, scfg.vocab_size, (2, 16))
+        on = {d: {k: torch.as_tensor(v, device=d) for k, v in inp.items()}
+              for d in ("cpu", dev)}
+        with torch.no_grad():
+            lc, ac = pm.forward_train(cpu, scfg, on["cpu"])
+            loss_c, _ = pm.loss_fn(cpu, scfg, on["cpu"])
+            lg, ag = pm.forward_train(card, scfg, on[dev])
+        loss_g, _ = pm.loss_fn(card, scfg, on[dev])
+        loss_g.backward()
+        grads = [p.grad for p in card.parameters() if p.grad is not None]
+        gnorm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                     for g in grads)))
+        rec = {"logits": float((lg.cpu() - lc).abs().max()),
+               "aux": abs(float(ag) - float(ac)),
+               "loss": abs(float(loss_g.detach()) - float(loss_c)),
+               "grad_norm": gnorm}
+        if not (np.isfinite(gnorm) and gnorm > 0):
+            fail(f"{arch}: gradient norm {gnorm} on the card")
+        if "decode_32k" not in SKIP_CELLS.get(arch, set()):
+            toks = rng.integers(0, scfg.vocab_size, (2, 4)).astype(np.int32)
+            caches = {d: pm.init_cache(scfg, 2, 8, device=d)
+                      for d in ("cpu", dev)}
+            derr = 0.0
+            with torch.no_grad():
+                for t in range(toks.shape[1]):
+                    got = {}
+                    for d in ("cpu", dev):
+                        got[d], caches[d] = pm.decode_step(
+                            cpu if d == "cpu" else card, scfg,
+                            torch.as_tensor(toks[:, t:t + 1], device=d),
+                            caches[d], t)
+                    derr = max(derr, float((got[dev].cpu()
+                                            - got["cpu"]).abs().max()))
+            rec["decode"] = derr
+        for k in ("logits", "aux", "loss", "decode"):
+            if k in rec and not rec[k] <= LM_SMOKE_TOL:
+                fail(f"{arch}: {k} on the card differs from the CPU port's "
+                     f"by {rec[k]}")
+        if arch in ("llama3-8b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                    "xlstm-125m"):
+            dcfg = scfg if scfg.moe is None else dataclasses.replace(
+                scfg, moe=dataclasses.replace(
+                    scfg.moe, capacity_factor=float(scfg.moe.num_experts)))
+            rec["greedy_vs_forward"], rec["near_ties"] = \
+                lm_greedy_matches_forward(torch, pm, ServeEngine, dcfg, card,
+                                          [3, 1, 4, 1], dev)
+        smoke[arch] = rec
+    out["smoke"] = smoke
+    out["smoke_s"] = time.perf_counter() - t_smoke
+    out["phase_s"] = time.perf_counter() - t_phase
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the LM path launched EDM kernels: {launches}")
+    return out, launches
+
+
 def bench_resume_row(torch, EDM):
     """The reference bench's journal row (``benchmarks/bench_ccm.py``,
     ``_run_resume_overhead``) on the card: ``EDMConfig(E=3, cache=False)``
@@ -2838,6 +3179,11 @@ def main() -> None:
     print(smi)
     print(json.dumps({"sharded_path": sharded_out}))
 
+    # ------------------------------------------------ 12. LM serving path
+    lm_out, lm_launches = run_lm_path(torch, np, dev, reset_counts, counts)
+    print(smi)
+    print(json.dumps({"lm_path": lm_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -2847,6 +3193,7 @@ def main() -> None:
         r["launches"] = path_of.get(r["name"], slice_launches)[r["name"]]
         r["serving_launches"] = serving_launches[r["name"]]
         r["sharded_launches"] = sharded_launches[r["name"]]
+        r["lm_launches"] = lm_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

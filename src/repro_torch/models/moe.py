@@ -1,0 +1,108 @@
+"""Capacity-based Mixture-of-Experts (the port of ``repro.models.moe``).
+
+Dispatch is data movement (sort + capacity scatter/gather), not one-hot
+matmuls. Routing takes each token's top-k experts by probability (ties to
+the lower expert index, as ``lax.top_k``: a stable descending sort), sorts
+the (token, expert) rows by expert (stable), and gives each row its
+position in its expert's run; rows at positions ≥ capacity drop (GShard
+semantics, capacity_factor 1.25) and read zero back. Shared experts
+(DeepSeek) are an always-on fused MLP.
+
+Only the reference's no-mesh branch is ported (E_loc = E); the expert-
+parallel branch is ROADMAP item 11c. ``index_add_`` on CUDA sums a token's
+expert outputs in no fixed order, so the card is held to a tolerance.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _init, mlp, mlp_init
+from repro_torch.models.meshctx import constrain
+
+
+def moe_init(rng, cfg, dtype):
+    m = cfg.moe
+    D, F_, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    scale = 1.0 / math.sqrt(D)
+    p = {
+        "router": _init(rng, (D, E), scale, "float32"),
+        "w_gate": _init(rng, (E, D, F_), scale, dtype),
+        "w_up": _init(rng, (E, D, F_), scale, dtype),
+        "w_down": _init(rng, (E, F_, D), 1.0 / math.sqrt(F_), dtype),
+    }
+    if m.num_shared:
+        p["shared"] = mlp_init(rng, D, F_ * m.num_shared, "swiglu", dtype)
+    return p
+
+
+def _route(xf, router, k, E, cf):
+    """Local routing: returns (se, st, pos, wts, counts, probs)."""
+    T = xf.shape[0]
+    logits = xf.float() @ router  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(T * k)
+    flat_p = top_p.reshape(T * k)
+    flat_t = torch.arange(T, device=xf.device).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    st = flat_t[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=xf.device) - starts[se]
+    return se, st, pos, flat_p[order][:, None], counts, probs
+
+
+def _capacity(T, k, E, cf):
+    return max(4, int(math.ceil(T * k * cf / E)))
+
+
+def _expert_block(wg, wu, wd, xf, se_loc, st, pos, C):
+    """Capacity dispatch + expert FFN + gather back for a LOCAL expert
+    bank. Rows with se_loc outside [0, E_loc) or pos ≥ C drop from the
+    dispatch and read zero back (the reference's out-of-bounds scatter
+    and fill gather)."""
+    E_loc, D, _ = wg.shape
+    keep = (se_loc >= 0) & (se_loc < E_loc) & (pos < C)
+    e_k, p_k = se_loc[keep], pos[keep]
+    h = torch.zeros((E_loc, C, D), dtype=xf.dtype, device=xf.device)
+    h[e_k, p_k] = xf[st[keep]]
+    gate = torch.bmm(h, wg)
+    up = torch.bmm(h, wu)
+    out = torch.bmm(F.silu(gate) * up, wd)
+    back = torch.zeros((se_loc.shape[0], D), dtype=out.dtype,
+                       device=out.device)
+    back[keep] = out[e_k, p_k]
+    return back  # (T·k, D)
+
+
+def _moe_local(x, router, wg, wu, wd, *, k, E, cf):
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    se, st, pos, wts, counts, probs = _route(xf, router, k, E, cf)
+    C = _capacity(T, k, E, cf)
+    gathered = _expert_block(wg, wu, wd, xf, se, st, pos, C)
+    y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(
+        0, st, wts.to(x.dtype) * gathered)
+    aux = E * torch.sum((counts.float() / (T * k)) * probs.mean(0))
+    return y.reshape(B, S, D), aux
+
+
+def moe_apply(p, cfg, x):
+    """x: (B, S, D) → (y (B, S, D), aux load-balance loss scalar)."""
+    m = cfg.moe
+    dtype = x.dtype
+    y, aux = _moe_local(x, p["router"], p["w_gate"].to(dtype),
+                        p["w_up"].to(dtype), p["w_down"].to(dtype),
+                        k=m.top_k, E=m.num_experts, cf=m.capacity_factor)
+    y = constrain(y, "dp", None, None)
+    if m.num_shared:
+        y = y + mlp(p["shared"], x, "swiglu")
+    return y, aux

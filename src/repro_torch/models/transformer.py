@@ -1,0 +1,361 @@
+"""Model assembly: pattern-based block stacks (the port of
+``repro.models.transformer``).
+
+A config's ``pattern`` (e.g. ``("attn",)``, ``("attn_moe", "attn")``,
+Jamba's 8-layer hybrid unit) is instantiated ``n_units = n_layers /
+len(pattern)`` times. The reference stacks the units' parameters along a
+leading axis and scans over them; here each unit is its own child of
+``units`` (``units.<u>.l<i>...``), run in a loop, so the parameter names
+are the reference's paths with the unit's index in place of the stacked
+axis. With ``cfg.remat`` and grad on, each layer is recomputed in the
+backward (``torch.utils.checkpoint``); the values are the same.
+
+Entry points:
+  * ``init_params`` / ``abstract_params`` — the parameter module on a
+    device (the card by default) or on the meta device (no allocation).
+  * ``forward_train`` / ``loss_fn`` — logits; next-token (causal) or
+    framewise (encoder) CE + MoE aux (+ z-loss).
+  * ``prefill`` — forward returning the attention layers' KV caches padded
+    to S_max.
+  * ``init_cache`` / ``decode_step`` — one token against the cache.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.edm.dataset import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
+from repro_torch.models.layers import (
+    Init,
+    Params,
+    embed,
+    embedding_init,
+    mlp,
+    mlp_init,
+    rmsnorm,
+    rmsnorm_init,
+    torch_dtype,
+    unembed,
+)
+from repro_torch.models.meshctx import constrain
+
+ATTN_KINDS = ("attn", "attn_moe")
+
+
+def _dtype(cfg):
+    return torch_dtype(cfg.dtype)
+
+
+# ------------------------------------------------------------------ init
+
+
+def _layer_init(kind, rng, cfg, dtype):
+    p = {"norm1": rmsnorm_init(rng, cfg.d_model, dtype)}
+    if kind in ATTN_KINDS:
+        init = attn.mla_init if cfg.attention == "mla" else attn.gqa_init
+        p["mix"] = init(rng, cfg, dtype)
+    elif kind in ("mamba", "mamba_moe"):
+        p["mix"] = mb.mamba_init(rng, cfg, dtype)
+    elif kind == "mlstm":
+        p["mix"] = xl.mlstm_init(rng, cfg, dtype)
+        return p  # single-residual block
+    elif kind == "slstm":
+        p["mix"] = xl.slstm_init(rng, cfg, dtype)
+        return p
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    p["norm2"] = rmsnorm_init(rng, cfg.d_model, dtype)
+    if kind.endswith("_moe"):
+        p["mlp"] = moe_mod.moe_init(rng, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(rng, cfg.d_model, cfg.d_ff, cfg.mlp, dtype)
+    return p
+
+
+def _unit_init(rng, cfg, dtype):
+    return {f"l{i}": _layer_init(kind, rng, cfg, dtype)
+            for i, kind in enumerate(cfg.pattern)}
+
+
+def init_params(cfg, *, device="cuda", generator=None) -> Params:
+    """The parameter module of ``cfg`` on ``device`` (the card by default;
+    raises without CUDA), every initial value drawn from ``generator`` (on
+    that device; a new one seeded 0 when None). The tree is the
+    reference's: ``embed`` (token-input archs and VLMs), ``units``,
+    ``final_norm``, and ``lm_head`` unless the embeddings are tied. On the
+    ``meta`` device it allocates and draws nothing."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev, "init_params")
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+    rng = Init(dev, None if dev.type == "meta" else generator)
+    dtype = cfg.param_dtype
+    tree = {}
+    if not cfg.embed_inputs or cfg.family == "vlm":
+        tree["embed"] = embedding_init(rng, cfg.vocab_size, cfg.d_model,
+                                       dtype)
+    tree["units"] = [_unit_init(rng, cfg, dtype) for _ in range(cfg.n_units)]
+    tree["final_norm"] = rmsnorm_init(rng, cfg.d_model, dtype)
+    if not (cfg.tie_embeddings and "embed" in tree):
+        # 1/√d head init keeps init CE ≈ log V (logits O(1))
+        tree["lm_head"] = embedding_init(rng, cfg.vocab_size, cfg.d_model,
+                                         dtype, scale=cfg.d_model ** -0.5)
+    return Params(tree)
+
+
+def abstract_params(cfg) -> Params:
+    """The parameter module on the meta device — no allocation."""
+    return init_params(cfg, device="meta")
+
+
+# --------------------------------------------------------------- forward
+
+
+def _apply_layer_train(kind, p, x, positions, *, cfg, mode):
+    """mode: 'train' (full attention) or 'prefill' (cache out)."""
+    cache = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        if cfg.attention == "mla":
+            if mode == "prefill":
+                y, cache = attn.mla_full(p["mix"], cfg, h, positions,
+                                         return_cache=True)
+            else:
+                y = attn.mla_full(p["mix"], cfg, h, positions)
+        else:
+            if mode == "prefill":
+                y, cache = attn.gqa_prefill(p["mix"], cfg, h, positions)
+            else:
+                y = attn.gqa_full(p["mix"], cfg, h, positions)
+    elif kind in ("mamba", "mamba_moe"):
+        y = mb.mamba_train(p["mix"], cfg, h)
+    elif kind == "mlstm":
+        return x + xl.mlstm_train(p["mix"], cfg, h), aux, None
+    elif kind == "slstm":
+        return x + xl.slstm_train(p["mix"], cfg, h), aux, None
+    x = x + y
+    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if kind.endswith("_moe"):
+        y2, aux = moe_mod.moe_apply(p["mlp"], cfg, h2)
+    else:
+        y2 = mlp(p["mlp"], h2, cfg.mlp)
+    return x + y2, aux, cache
+
+
+def _unit_apply_train(uparams, cfg, x, positions, mode):
+    aux_total = 0.0
+    caches = {}
+    x = constrain(x, "dp", None, None)
+    for i, kind in enumerate(cfg.pattern):
+        layer = functools.partial(_apply_layer_train, kind, cfg=cfg,
+                                  mode=mode)
+        if cfg.remat and torch.is_grad_enabled():
+            x, aux, cache = checkpoint(layer, uparams[f"l{i}"], x, positions,
+                                       use_reentrant=False)
+        else:
+            x, aux, cache = layer(uparams[f"l{i}"], x, positions)
+        aux_total = aux_total + aux
+        if cache is not None:
+            caches[f"l{i}"] = cache
+    return x, aux_total, caches
+
+
+def _stack_forward(params, cfg, x, positions, mode):
+    """Run the units in turn. Returns (x, aux, caches): the caches stacked
+    along a leading (units,) axis under ``cfg.scan_layers`` (the reference's
+    scan output), a list of per-unit dicts otherwise."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for uparams in params["units"]:
+        x, aux, c = _unit_apply_train(uparams, cfg, x, positions, mode)
+        aux_total = aux_total + aux
+        caches.append(c)
+    if cfg.scan_layers:
+        caches = {name: {k: torch.stack([c[name][k] for c in caches])
+                         for k in caches[0][name]}
+                  for name in caches[0]}
+    return x, aux_total, caches
+
+
+def _inputs_to_h(params, cfg, batch):
+    if cfg.embed_inputs:
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = embed(params["embed"], batch["tokens"], _dtype(cfg))
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def _head(params, cfg, x):
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    table = params["embed"] if (cfg.tie_embeddings and "embed" in params) \
+        else params["lm_head"]
+    return unembed(table, x)  # (B, S, V) f32
+
+
+def forward_train(params, cfg, batch):
+    """batch: {"tokens": (B, S) int} or {"embeds": (B, S, D)} → (logits
+    (B, S, V) float32, MoE aux scalar)."""
+    x, positions = _inputs_to_h(params, cfg, batch)
+    x, aux, _ = _stack_forward(params, cfg, x, positions, mode="train")
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch, *, aux_weight: float = 0.01,
+            zloss: float = 0.0):
+    """Mean CE (+ MoE aux, + optional z-loss). Returns (loss, metrics)."""
+    logits, aux = forward_train(params, cfg, batch)
+    labels = batch["labels"] if "labels" in batch else batch["tokens"]
+    if cfg.causal:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    loss = ce.mean()
+    metrics = {"ce": loss, "aux": aux}
+    if any(k.endswith("_moe") for k in cfg.pattern):
+        loss = loss + aux_weight * aux
+    if zloss:
+        lse = torch.logsumexp(logits, dim=-1)
+        loss = loss + zloss * torch.mean(lse ** 2)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# --------------------------------------------------------------- serving
+
+
+def prefill(params, cfg, batch, *, s_max: int | None = None):
+    """Forward pass that also returns the attention layers' caches (padded
+    to s_max along the sequence axis): (last-position logits (B, 1, V),
+    caches). Recurrent layers' states are not returned, as in the
+    reference."""
+    x, positions = _inputs_to_h(params, cfg, batch)
+    x, _, caches = _stack_forward(params, cfg, x, positions, mode="prefill")
+    logits = _head(params, cfg, x[:, -1:, :])
+    S = positions.shape[1]
+    s_max = s_max or S
+    caches = _pad_attn_caches(caches, cfg, s_max,
+                              axis=2 if cfg.scan_layers else 1)
+    return logits, caches
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _pad_attn_caches(caches, cfg, s_max, *, axis):
+    def pad(leaf):
+        if leaf.ndim > axis and leaf.shape[axis] != s_max:
+            shape = list(leaf.shape)
+            shape[axis] = s_max - leaf.shape[axis]
+            return torch.cat([leaf, leaf.new_zeros(shape)], dim=axis)
+        return leaf
+
+    return _map_leaves(pad, caches)
+
+
+def init_cache(cfg, batch: int, s_max: int, dtype=None, abstract=False, *,
+               device="cuda"):
+    """The decode cache tree: ``{"l<i>": {...}}`` with a leading
+    (n_units,) axis under ``cfg.scan_layers``, a list of per-unit trees
+    otherwise; zeros (xLSTM stabilizers ``m`` at -1e30) on ``device`` (the
+    card by default), or meta tensors when ``abstract``."""
+    dtype = dtype or cfg.dtype
+    unit = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind in ATTN_KINDS:
+            shape_fn = (attn.mla_cache_shape if cfg.attention == "mla"
+                        else attn.gqa_cache_shape)
+            unit[f"l{i}"] = shape_fn(cfg, batch, s_max, dtype)
+        elif kind in ("mamba", "mamba_moe"):
+            unit[f"l{i}"] = mb.mamba_cache_shape(cfg, batch, dtype)
+        elif kind == "mlstm":
+            unit[f"l{i}"] = xl.mlstm_cache_shape(cfg, batch, dtype)
+        elif kind == "slstm":
+            unit[f"l{i}"] = xl.slstm_cache_shape(cfg, batch, dtype)
+    n = cfg.n_units
+    dev = torch.device("meta") if abstract else resolve_device(
+        device, "init_cache")
+
+    def make(name, sds, lead=()):
+        shape = lead + tuple(sds.shape)
+        if abstract:
+            return torch.empty(shape, dtype=sds.dtype, device=dev)
+        fill = xl.M_INIT if name == "m" else 0.0
+        return torch.full(shape, fill, dtype=sds.dtype, device=dev)
+
+    def unit_tree(lead):
+        return {l: {k: make(k, sds, lead) for k, sds in leaves.items()}
+                for l, leaves in unit.items()}
+
+    if cfg.scan_layers:
+        return unit_tree((n,))
+    return [unit_tree(()) for _ in range(n)]
+
+
+def _apply_layer_decode(kind, p, cfg, x, cache, pos):
+    """One layer's decode step; writes the layer's new state into
+    ``cache`` in place."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        # seqpar_decode() is always False without a mesh (item 11c).
+        fn = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+        y, _ = fn(p["mix"], cfg, h, cache, pos)
+    else:
+        if kind in ("mamba", "mamba_moe"):
+            y, new = mb.mamba_decode(p["mix"], cfg, h, cache)
+        elif kind == "mlstm":
+            y, new = xl.mlstm_decode(p["mix"], cfg, h, cache)
+        else:
+            y, new = xl.slstm_decode(p["mix"], cfg, h, cache)
+        for k, v in new.items():
+            cache[k].copy_(v)
+        if kind in ("mlstm", "slstm"):
+            return x + y
+    x = x + y
+    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if kind.endswith("_moe"):
+        y2, _ = moe_mod.moe_apply(p["mlp"], cfg, h2)
+    else:
+        y2 = mlp(p["mlp"], h2, cfg.mlp)
+    return x + y2
+
+
+def decode_step(params, cfg, tokens, cache, pos: int):
+    """One-token serve step.
+
+    tokens: (B, 1) int (or {"embeds": (B, 1, D)} for pure-embedding archs);
+    cache: tree from init_cache (or a prefill's attention caches in the
+    same layout); pos: int write position. Writes the step's KV row and
+    recurrent states INTO ``cache`` (in place) and returns
+    (logits (B, 1, V) float32, that same cache tree).
+    """
+    if isinstance(tokens, dict):
+        x = tokens["embeds"].to(_dtype(cfg))
+    else:
+        x = embed(params["embed"], tokens, _dtype(cfg))
+    for u, uparams in enumerate(params["units"]):
+        # Unit u's slice of a stacked cache is a view: writes reach it.
+        ucache = ({name: {k: v[u] for k, v in leaves.items()}
+                   for name, leaves in cache.items()}
+                  if cfg.scan_layers else cache[u])
+        for i, kind in enumerate(cfg.pattern):
+            x = _apply_layer_decode(kind, uparams[f"l{i}"], cfg, x,
+                                    ucache[f"l{i}"], pos)
+    return _head(params, cfg, x), cache

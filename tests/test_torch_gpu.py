@@ -1041,3 +1041,112 @@ def test_mesh_of_two_without_a_process_group_raises():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="torchrun"):
         make_ccm_mesh((2,), ("data",))
+
+
+# ------------------------------------------------- the LM substrate
+
+
+LM_SMOKE_TOL = 1e-4   # float32 smoke models, TF32 off, card vs CPU
+
+
+def _lm_pair(arch, **replace):
+    """(cfg, CPU model, the same weights on the card) of a smoke arch."""
+    import dataclasses
+    from repro_torch import models as pm
+    from repro_torch.configs import get_config
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card-against-CPU checks")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **replace)
+    cpu = pm.init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    card = pm.abstract_params(cfg).to_empty(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+def _lm_batch(cfg, device, B=2, S=16):
+    rng = np.random.default_rng(4)
+    out = {"labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.embed_inputs:
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+LM_ARCHS = ("qwen1.5-4b", "llama3-8b", "yi-6b", "nemotron-4-15b",
+            "jamba-v0.1-52b", "hubert-xlarge", "llava-next-mistral-7b",
+            "xlstm-125m", "llama4-maverick-400b-a17b", "deepseek-v2-lite-16b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_loss_and_grads_on_the_card(arch):
+    from repro_torch import models as pm
+    cfg, cpu, card = _lm_pair(arch)
+    with torch.no_grad():
+        lc, ac = pm.forward_train(cpu, cfg, _lm_batch(cfg, "cpu"))
+        loss_c, _ = pm.loss_fn(cpu, cfg, _lm_batch(cfg, "cpu"))
+        lg, ag = pm.forward_train(card, cfg, _lm_batch(cfg, "cuda"))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=LM_SMOKE_TOL,
+                               atol=LM_SMOKE_TOL)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=LM_SMOKE_TOL,
+                               atol=LM_SMOKE_TOL)
+    loss, _ = pm.loss_fn(card, cfg, _lm_batch(cfg, "cuda"))
+    loss.backward()
+    torch.testing.assert_close(loss.detach().cpu(), loss_c,
+                               rtol=LM_SMOKE_TOL, atol=LM_SMOKE_TOL)
+    grads = [p.grad for p in card.parameters() if p.grad is not None]
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads))
+    assert torch.isfinite(norm) and norm > 0
+
+
+@pytest.mark.parametrize("arch", [a for a in LM_ARCHS
+                                  if a != "hubert-xlarge"])
+def test_lm_decode_steps_on_the_card(arch):
+    from repro_torch import models as pm
+    cfg, cpu, card = _lm_pair(arch)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 5))
+    caches = {d: pm.init_cache(cfg, 2, 8, device=d) for d in ("cpu", "cuda")}
+    with torch.no_grad():
+        for t in range(5):
+            out = {}
+            for d, m in (("cpu", cpu), ("cuda", card)):
+                out[d], caches[d] = pm.decode_step(
+                    m, cfg, torch.as_tensor(toks[:, t:t + 1], device=d),
+                    caches[d], t)
+            torch.testing.assert_close(out["cuda"].cpu(), out["cpu"],
+                                       rtol=LM_SMOKE_TOL, atol=LM_SMOKE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-lite-16b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
+def test_lm_serve_engine_on_the_card_equals_the_cpu(arch):
+    from repro_torch.serving import ServeEngine
+    cfg, cpu, card = _lm_pair(arch)
+    prompts = [[1, 2, 3, 4], [7, 8], [5, 5, 5, 5, 5, 5]]
+    want = ServeEngine(cfg, cpu, s_max=32).generate(prompts, max_new=8)
+    got = ServeEngine(cfg, card, s_max=32).generate(prompts, max_new=8)
+    assert got.tokens == want.tokens and got.steps == want.steps
+    hot = dict(max_new=8, temperature=0.8, seed=0)
+    assert ServeEngine(cfg, card, s_max=32).generate(prompts, **hot).tokens \
+        == ServeEngine(cfg, cpu, s_max=32).generate(prompts, **hot).tokens
+
+
+def test_lm_chunked_prefill_on_the_card():
+    from repro_torch import models as pm
+    cfg, cpu, card = _lm_pair("deepseek-v2-lite-16b", attn_full_max=8,
+                              attn_chunk_q=8)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 32))
+    with torch.no_grad():
+        lc, cc = pm.prefill(cpu, cfg, {"tokens": torch.as_tensor(toks)},
+                            s_max=40)
+        lg, cg = pm.prefill(card, cfg, {"tokens": torch.as_tensor(
+            toks, device="cuda")}, s_max=40)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=LM_SMOKE_TOL,
+                               atol=LM_SMOKE_TOL)
+    for name in cc:
+        for k in cc[name]:
+            torch.testing.assert_close(cg[name][k].cpu(), cc[name][k],
+                                       rtol=LM_SMOKE_TOL, atol=LM_SMOKE_TOL)

@@ -49,7 +49,16 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.subscriptions, "
             "repro_torch.serving.scheduler, "
             "repro_torch.serving.durability, "
-            "repro_torch.serving.edm_server\n"
+            "repro_torch.serving.edm_server, repro_torch.configs, "
+            "repro_torch.configs.base, repro_torch.models, "
+            "repro_torch.models.layers, repro_torch.models.meshctx, "
+            "repro_torch.models.attention, repro_torch.models.moe, "
+            "repro_torch.models.mamba, repro_torch.models.xlstm, "
+            "repro_torch.models.transformer, repro_torch.models.carry, "
+            "repro_torch.serving.engine, repro_torch.launch, "
+            "repro_torch.launch.serve\n"
+            "from repro_torch.configs import ARCHS, get_config\n"
+            "[get_config(a, smoke=s) for a in ARCHS for s in (0, 1)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
