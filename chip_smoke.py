@@ -174,6 +174,34 @@ phase passed; any failure exits nonzero. Phases:
    ``backward()`` on the card; for llama3-8b, deepseek-v2-lite-16b,
    jamba-v0.1-52b and xlstm-125m greedy decode of 8 tokens equal to the
    parallel forward's argmax (dropless MoE).
+13. LM training path — the LM substrate's training half
+   (``repro_torch.optim``, ``repro_torch.training``,
+   ``repro_torch.data.pipeline``, ``repro_torch.distributed.compression``,
+   ``repro_torch.launch.train``) in plain eager PyTorch, none of the EDM
+   kernels (their counts read: 0 each, ``train_launches``). (a) qwen1.5-4b
+   as configured (40 layers, d_model 2,560, vocab 151,936, bf16 over
+   float32 parameters, random weights from a generator seeded 0 on the
+   card; no cut): ``make_train_step`` with ``adamw8bit``, 4 steps of
+   ``TokenPipeline(vocab, batch 4, seq_len 4,096, seed 0)`` in 4
+   microbatches (train_4k's sequence; its global batch of 256 cut to 4):
+   parameter and optimizer-state bytes beside the reckoning (the
+   reference's stacked eligibility rule, checked leaf by leaf: int8 codes
+   of the parameter's shape, float32 scales), each step's metrics beside
+   ln V, CUDA-event ms, tokens/s, the step's FLOP and bytes bound, peak
+   memory; sampled rows of ``embed.table``, ``units.20.l0.mlp.w_up.w``,
+   ``units.20.l0.mix.wq.b`` and ``final_norm.g`` after step 3 against a
+   float64 recomputation of the reference's update from that step's
+   gradient (codes ±1); then float32 ``adamw`` on a fresh state, 3 steps
+   at B = 1, S = 2,048 (1,024 if the reckoned peak passed 76 GB) and one
+   more under the profiler (busy time, idle share). (b) The ten smoke
+   archs' train step on the card against the CPU port from one state
+   made on the CPU (float32, TF32 off), and on llama3-8b the widened
+   8-bit config, the int8 wire and two microbatches (also against one
+   batch on the card), at the CPU tests' tolerances. (c) ``train()`` on
+   the reference loop tests' tiny config: learning over 40 steps, 20 + 10
+   steps against 30 within rtol 1e-5, atol 1e-6, a child SIGTERM'd after
+   its fourth batch exiting 0 with step 4 saved, and ``python -m
+   repro_torch.launch.train --arch llama3-8b --steps 10 --device cuda``.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -181,6 +209,7 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -252,6 +281,59 @@ LM_MATCH_TOKENS = 8       # greedy tokens held to the parallel forward
 LM_BF16_ATOL = 0.25
 # The smoke archs, float32 with TF32 off: the card against the CPU port.
 LM_SMOKE_TOL = 1e-4
+
+TRAIN_ARCH = "qwen1.5-4b"   # the training path at full width, as configured
+TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch 256 → 4
+TRAIN_MICRO = 4             # microbatches of one sequence each
+TRAIN_STEPS = 4             # adamw8bit steps (warmup 0, total 4)
+TRAIN_F32_STEPS = 3         # then float32 adamw on a fresh state, B = 1,
+TRAIN_F32_S = 2048          # S = 2048 (1024 when the reckoned peak > 76 GB)
+TRAIN_MEM_CAP = 76e9        # the reckoning's ceiling for the float32 run
+TRAIN_CHECK_STEP = 3        # the step whose sampled updates are recomputed
+TRAIN_CHECK_ROWS = 8        # rows of each checked leaf
+BF16_FLOPS = 989e12
+# The smoke archs' train step on the card against the CPU port (float32,
+# TF32 off), one step from the same state, at the CPU tests' tolerances
+# (tests/torch_train.py): metrics |Δ| ≤ 2e-5 (1 + |ref|); weights in two
+# tiers, elements with a real gradient within 1e-3·lr (0.2·lr where a
+# one-off rounding feeds the update: 8-bit moments, the int8 wire),
+# elements whose gradient RMS is under 1e-3 of the model's largest within
+# 2·lr (Adam's step is ±lr there whatever |g| is); float32 moments within
+# 2e-4 of the leaf's largest |m| (floored at 1e-3 of the model's; 2e-2
+# under the int8 wire, where a step's gradient may be one quantum, 1/127
+# of its block's absmax, off); 8-bit codes ±1, scales 2e-4 relative;
+# error buffers equal but where the wire rounded the other way (one
+# element in a thousand at most).
+TRAIN_SMOKE_RTOL = 2e-5
+# The loop on the card: an unbroken 30-step run against 20 + 10, at the
+# reference's own tolerance (tests/test_train_loop.py:57-58).
+LOOP_RTOL, LOOP_ATOL = 1e-5, 1e-6
+
+# A child process of the training phase: the loop on the card, SIGTERM'd by
+# the parent while it waits after its fourth batch.
+TRAIN_CHILD = r"""
+import dataclasses, sys
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.training import train
+cfg = dataclasses.replace(get_config("llama3-8b", smoke=True), vocab_size=64)
+tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=60,
+                   weight_decay=0.01, seed=0)
+pipe = TokenPipeline(vocab_size=64, batch=4, seq_len=32, seed=1)
+
+
+class Waiting:
+    def global_batch(self, step):
+        print(f"BATCH {step}", flush=True)
+        if step == 3:
+            sys.stdin.readline()
+        return pipe.global_batch(step)
+
+
+_, hist = train(cfg, tcfg, Waiting(), workdir=sys.argv[1], num_steps=50,
+                ckpt_every=100, verbose=True, device="cuda")
+print(f"DONE {len(hist)}", flush=True)
+"""
 
 # A child process of the journal phase: ``kill`` runs the direct journaled
 # xmap at B and delivers SIGTERM to itself at its second engine launch
@@ -2697,6 +2779,657 @@ def run_lm_path(torch, np, dev, reset_counts, counts):
     return out, launches
 
 
+def train_flops(cfg, B, S):
+    """(bf16 FLOPs, float32 FLOPs) of one train step on B × S tokens: the
+    layers' matrices 8·N·T (forward, remat recompute, backward) and causal
+    attention 8·S²·d a layer and sequence, at the bf16 rate; the float32
+    head (outside the remat) 6·N_head·T at the float32 rate, TF32 off; the
+    embedding is a gather."""
+    table = cfg.vocab_size * cfg.d_model
+    n_body = cfg.param_count() - table * (1 if cfg.tie_embeddings else 2)
+    T = B * S
+    attn = 8 * S * S * cfg.n_heads * cfg.d_head * cfg.n_layers * B
+    return 8 * n_body * T + attn, 6 * table * T
+
+
+def opt_bytes(state):
+    """Bytes one AdamW step must move: each weight, gradient and moment
+    read once, each weight and moment written once."""
+    p = tree_bytes(list(state["params"].parameters()))
+    mv = tree_bytes(state["opt"]["m"]) + tree_bytes(state["opt"]["v"])
+    return 3 * p + 2 * mv
+
+
+def train_peak_reckon(cfg, B, S, state_bytes):
+    """Device bytes reckoned for one float32-AdamW step: the state, the
+    gradients (as large as the weights), and the larger of the step's
+    activations (the float32 head's logits, log-probabilities and their
+    two gradients; one layer's chunked-attention recompute, six float32
+    (cq × cq) score tensors a head and chunk pair; the layers' saved
+    inputs) and the optimizer's temporaries (four float32 copies of the
+    largest leaf)."""
+    params = state_bytes["params"]
+    cq = min(cfg.attn_chunk_q, S)
+    head = 4 * B * S * cfg.vocab_size * 4
+    attn = 6 * (S // cq) ** 2 * B * cfg.n_heads * cq * cq * 4
+    saved = cfg.n_layers * B * S * cfg.d_model * 2 * 2
+    largest = cfg.vocab_size * cfg.d_model * 4
+    return (sum(state_bytes.values()) + params
+            + max(head + attn + saved, 4 * largest))
+
+
+def host_tree(torch, t, rows=None):
+    """A moment or weight (or its ``rows``) on the host in float64
+    (codes as int64)."""
+    if isinstance(t, dict):
+        return {k: host_tree(torch, v, rows) for k, v in t.items()}
+    t = t.detach()
+    if rows is not None:
+        t = t[rows]
+    return t.cpu().to(torch.int64 if t.dtype == torch.int8
+                      else torch.float64).numpy()
+
+
+def adam64(np, p, g, m, v, *, step, lr, tcfg):
+    """The reference's AdamW update (``repro.optim.adamw``) of one leaf in
+    float64 on the host, its 8-bit codec included: (p, m, v) after the
+    step ``step`` (0-based) from float64 copies of the card's."""
+    from repro_torch.optim.adamw import BLOCK
+
+    def blocks(x):
+        return x.reshape(x.shape[:-1] + (x.shape[-1] // BLOCK, BLOCK))
+
+    def decode(enc, kind):
+        y = enc["q"] / 127.0
+        y = np.abs(y) * y if kind == "sq" else y ** 4
+        return (blocks(y) * enc["scale"][..., None]).reshape(y.shape)
+
+    def encode(x, kind):
+        amax = np.abs(blocks(x)).max(-1, keepdims=True)
+        y = blocks(x) / np.maximum(amax, 1e-30)
+        q = (np.round(127 * np.sign(y) * np.sqrt(np.abs(y))) if kind == "sq"
+             else np.round(127 * np.abs(y) ** 0.25))
+        return {"q": q.reshape(x.shape), "scale": amax[..., 0]}
+
+    m0 = decode(m, "sq") if isinstance(m, dict) else m
+    v0 = decode(v, "q4") if isinstance(v, dict) else v
+    m1 = tcfg.b1 * m0 + (1 - tcfg.b1) * g
+    v1 = tcfg.b2 * v0 + (1 - tcfg.b2) * g * g
+    t = step + 1
+    upd = (m1 / (1 - tcfg.b1 ** t)) / (np.sqrt(v1 / (1 - tcfg.b2 ** t))
+                                       + tcfg.eps)
+    p1 = p - lr * (upd + tcfg.weight_decay * p)
+    return (p1, encode(m1, "sq") if isinstance(m, dict) else m1,
+            encode(v1, "q4") if isinstance(v, dict) else v1)
+
+
+def hold_update(np, name, before, after, grad, *, step, lr, norm, tcfg):
+    """The card's update of sampled rows of one leaf against ``adam64`` from
+    the rows before the step and their accumulated gradient (clipped here
+    as the step clips it): weights within 1e-5 of their move plus two
+    float32 ulps, 8-bit codes ±1 and scales 1e-5 relative, float32
+    moments 1e-5 of the rows' largest. Returns the observed maxima."""
+    scale = min(1.0, tcfg.grad_clip / max(norm, 1e-9))
+    p1, m1, v1 = adam64(np, before["p"], grad * scale, before["m"],
+                        before["v"], step=step, lr=lr, tcfg=tcfg)
+    rec = {}
+    move = np.abs(p1 - before["p"])
+    ulp = np.spacing(np.abs(p1).astype(np.float32)).astype(np.float64)
+    d = np.abs(after["p"] - p1)
+    rec["p_err_over_tol"] = float((d / (1e-5 * move + 2 * ulp)).max())
+    rec["p_max_abs_err"] = float(d.max())
+    rec["p_max_move"] = float(move.max())
+    for k, want in (("m", m1), ("v", v1)):
+        got = after[k]
+        if isinstance(want, dict):
+            dq = np.abs(got["q"] - want["q"])
+            rec[f"{k}_code_max"] = int(dq.max())
+            rec[f"{k}_code_flips"] = int((dq > 0).sum())
+            rec[f"{k}_codes"] = int(dq.size)
+            rec[f"{k}_scale_rel"] = float(
+                (np.abs(got["scale"] - want["scale"])
+                 / np.maximum(want["scale"], 1e-30)).max())
+            ok = dq.max() <= 1 and rec[f"{k}_scale_rel"] <= 1e-5
+        else:
+            rec[f"{k}_rel"] = float(np.abs(got - want).max()
+                                    / max(np.abs(want).max(), 1e-30))
+            ok = rec[f"{k}_rel"] <= 1e-5
+        if not ok:
+            fail(f"{name}: the card's {k} differs from the float64 "
+                 f"recomputation: {rec}")
+    if not rec["p_err_over_tol"] <= 1.0:
+        fail(f"{name}: the card's weights differ from the float64 "
+             f"recomputation: {rec}")
+    return rec
+
+
+def state_to(torch, pm, cfg, state, dev):
+    """A copy of a train state on ``dev`` (weights loaded into a module
+    made there, every other tensor copied)."""
+    def copy(t):
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        return t.detach().to(dev, copy=True)
+
+    params = pm.abstract_params(cfg).to_empty(device=dev)
+    params.load_state_dict(state["params"].state_dict())
+    out = {"params": params, "opt": copy(state["opt"])}
+    if "ebuf" in state:
+        out["ebuf"] = copy(state["ebuf"])
+    return out
+
+
+def hold_train_states(torch, np, got, want, *, lr, what):
+    """The card's train state after one step against the CPU port's from
+    the same state (the ``TRAIN_SMOKE_RTOL`` comment's tolerances).
+    Returns the observed maxima."""
+    from repro_torch.optim.adamw import _dequantize
+
+    def host(t):
+        return t.detach().cpu().to(torch.float64).numpy()
+
+    v_rms = {}
+    for n, v in want["opt"]["v"].items():
+        if isinstance(v, dict):
+            v = _dequantize(v, v["q"].shape, kind="q4")
+        v_rms[n] = np.sqrt(np.maximum(host(v), 0.0))
+    top = max(float(r.max()) for r in v_rms.values())
+    wire = bool(want.get("ebuf"))
+    rounded = wire or any(isinstance(v, dict)
+                          for v in want["opt"]["m"].values())
+    rec = {"param_real": 0.0, "param_floor": 0.0, "moment": 0.0,
+           "code": 0, "scale": 0.0, "ebuf": 0.0}
+    gp = dict(got["params"].named_parameters())
+    for n, w in want["params"].named_parameters():
+        d = np.abs(host(gp[n]) - host(w))
+        floor = v_rms[n] < 1e-3 * top
+        for key, part, tol in (("param_real", d[~floor],
+                                (0.2 if rounded else 1e-3) * lr),
+                               ("param_floor", d[floor], 2 * lr)):
+            if part.size:
+                rec[key] = max(rec[key], float(part.max()))
+                if not part.max() <= tol:
+                    fail(f"{what} {n}: the card's weights differ from the "
+                         f"CPU port's by {float(part.max())} ({key})")
+    for k in ("m", "v"):
+        tops = [float(np.abs(host(t)).max()) for t in
+                want["opt"][k].values() if not isinstance(t, dict)]
+        floor = 1e-3 * max(tops or [0.0])
+        for n, w in want["opt"][k].items():
+            g = got["opt"][k][n]
+            if isinstance(w, dict):
+                dq = int((g["q"].cpu().long() - w["q"].long()).abs().max())
+                rel = float(((host(g["scale"]) - host(w["scale"])).__abs__()
+                             / np.maximum(host(w["scale"]), 1e-30)).max())
+                rec["code"] = max(rec["code"], dq)
+                rec["scale"] = max(rec["scale"], rel)
+                if dq > 1 or rel > 2e-4:
+                    fail(f"{what} {n}: the card's 8-bit {k} differs from "
+                         f"the CPU port's (codes {dq}, scales {rel})")
+            else:
+                err = float(np.abs(host(g) - host(w)).max()) / max(
+                    float(np.abs(host(w)).max()), floor, 1e-30)
+                rec["moment"] = max(rec["moment"], err)
+                if not err <= (2e-2 if wire else 2e-4):
+                    fail(f"{what} {n}: the card's {k} differs from the CPU "
+                         f"port's by {err} of the leaf's scale")
+    if int(got["opt"]["step"]) != int(want["opt"]["step"]):
+        fail(f"{what}: the card's step count differs from the CPU port's")
+    off = total = 0
+    for n, w in want.get("ebuf", {}).items():
+        e = np.abs(host(got["ebuf"][n]) - host(w))
+        rec["ebuf"] = max(rec["ebuf"], float(e.max()))
+        off += int((e > 1e-6 + 1e-5 * np.abs(host(w))).sum())
+        total += e.size
+    # a residual differs only where the wire's rounding went the other way
+    # (one quantum): at most one element in a thousand
+    rec["ebuf_off"] = off
+    if off > 1e-3 * max(total, 1):
+        fail(f"{what}: {off} of {total} error-buffer elements differ "
+             f"between the card and the CPU port")
+    return rec
+
+
+def train_smoke_batch(np, cfg, seed, B=4, S=16):
+    rng = np.random.default_rng(seed)
+    out = {"labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.embed_inputs:
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)
+    return out
+
+
+def train_parity(torch, np, pm, make_train_step, cfg, tcfg, dev, what):
+    """One train step from one state made on the CPU, on the CPU and on the
+    card: (record of the observed maxima, the card's state)."""
+    init, step, _ = make_train_step(cfg, tcfg)
+    cpu = init(torch.Generator().manual_seed(0))
+    card = state_to(torch, pm, cfg, cpu, dev)
+    b = train_smoke_batch(np, cfg, 3)
+    cpu, mc = step(cpu, {k: torch.as_tensor(v) for k, v in b.items()})
+    card, mg = step(card, {k: torch.as_tensor(v, device=dev)
+                           for k, v in b.items()})
+    rec = {"metrics": 0.0}
+    for k, v in mc.items():
+        d = abs(float(mg[k]) - float(v))
+        rec["metrics"] = max(rec["metrics"], d)
+        if not (np.isfinite(float(mg[k]))
+                and d <= TRAIN_SMOKE_RTOL * (1 + abs(float(v)))):
+            fail(f"{what}: metric {k} on the card {float(mg[k])}, on "
+                 f"the CPU {float(v)}")
+    rec.update(hold_train_states(torch, np, card, cpu, lr=float(mc["lr"]),
+                                 what=what))
+    return rec, card
+
+
+def run_train_path(torch, np, dev, root, reset_counts, counts):
+    """The LM substrate's training half (``repro_torch.optim``,
+    ``repro_torch.training``, ``repro_torch.data.pipeline``,
+    ``repro_torch.distributed.compression``, ``repro_torch.launch.train``)
+    on the card, plain eager PyTorch (none of the EDM kernels; their counts
+    must stay 0): ``train_full_width``, ``train_smoke_archs``,
+    ``train_loop_checks`` in turn, each part's record printed when it
+    ends. Returns (record, launches)."""
+    import gc
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the training path needs them off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t_phase = time.perf_counter()
+    out, secs = {"arch": TRAIN_ARCH}, {}
+    for name, part in (
+            ("full_width", lambda: train_full_width(torch, np, dev)),
+            ("smoke", lambda: train_smoke_archs(torch, np, dev)),
+            ("loop", lambda: train_loop_checks(torch, np, dev, root))):
+        t0 = time.perf_counter()
+        rec = part()
+        secs[name] = time.perf_counter() - t0
+        if name == "full_width":
+            out.update(rec)
+        else:
+            out[name] = rec
+            print(json.dumps({"train_part": name, **rec}), flush=True)
+    out["seconds"] = dict(secs, phase=time.perf_counter() - t_phase)
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the training path launched EDM kernels: {launches}")
+    return out, launches
+
+
+def train_full_width(torch, np, dev):
+    """(a) ``TRAIN_ARCH`` as configured, uncut: ``adamw8bit`` steps at B =
+    ``TRAIN_B``, S = ``TRAIN_S`` in ``TRAIN_MICRO`` microbatches through
+    ``make_train_step``, the state's layout and bytes against the
+    reckoning, sampled updates of four leaves against ``adam64``, one
+    step of one microbatch under the profiler; then float32 ``adamw`` on
+    a fresh state at B = 1 and one step under the profiler."""
+    import gc
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim.adamw import BLOCK
+    from repro_torch.training import make_train_step
+
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(optimizer="adamw8bit", microbatch=TRAIN_MICRO,
+                       warmup_steps=0, total_steps=TRAIN_STEPS)
+    init, step_fn, abstract = make_train_step(cfg, tcfg)
+    meta = abstract()
+    reckon = {"params": tree_bytes(list(meta["params"].parameters())),
+              "opt": tree_bytes(meta["opt"]["m"])
+              + tree_bytes(meta["opt"]["v"])}
+    reckon["grads"] = reckon["params"]
+    del meta
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = host_s(torch, lambda: init(
+        torch.Generator(device=dev).manual_seed(0)))
+    params = dict(state["params"].named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters on the card, {cfg.param_count()} in "
+             f"the config")
+    coded = plain = 0
+    for name, p in params.items():
+        stack = cfg.n_units if name.startswith("units.") else 1
+        eligible = p.shape[-1] % BLOCK == 0 and p.numel() * stack >= 65536
+        for k in ("m", "v"):
+            mv = state["opt"][k][name]
+            if isinstance(mv, dict) != eligible:
+                fail(f"{name}: {k} is {'8-bit' if eligible else 'float32'} "
+                     f"by the reference's rule, not in the port's state")
+            if eligible and not (
+                    mv["q"].dtype == torch.int8 and mv["q"].shape == p.shape
+                    and mv["scale"].dtype == torch.float32
+                    and tuple(mv["scale"].shape)
+                    == tuple(p.shape[:-1]) + (p.shape[-1] // BLOCK,)):
+                fail(f"{name}: 8-bit {k} has codes {mv['q'].dtype}"
+                     f"{tuple(mv['q'].shape)}, scales "
+                     f"{tuple(mv['scale'].shape)}")
+        coded += p.numel() if eligible else 0
+        plain += 0 if eligible else p.numel()
+    got_bytes = {"params": tree_bytes(list(params.values())),
+                 "opt": tree_bytes(state["opt"]["m"])
+                 + tree_bytes(state["opt"]["v"])}
+    if got_bytes["opt"] != reckon["opt"]:
+        fail(f"optimizer state {got_bytes['opt']} B, reckoned "
+             f"{reckon['opt']} B")
+    out["model"] = {
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+        "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "params": n_params,
+        "param_bytes": got_bytes["params"], "opt_bytes": got_bytes["opt"],
+        "reckoned_bytes": reckon, "codec_params": coded,
+        "float32_moment_params": plain, "init_s": init_s,
+        "init_peak_bytes": torch.cuda.max_memory_allocated() - held}
+
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=0)
+    host_batches = [pipe.global_batch(s) for s in range(TRAIN_STEPS)]
+    # Two leaves with 8-bit moments on their own scale (the embedding, a
+    # unit's MLP) and one whose moments are 8-bit only by the reference's
+    # stacked rule (a unit's bias: (40, 2,560) stacked), plus the one leaf
+    # with float32 moments (the final norm, 2,560 alone).
+    checked = ("embed.table", "units.20.l0.mlp.w_up.w",
+               "units.20.l0.mix.wq.b", "final_norm.g")
+    rng = np.random.default_rng(0)
+    seen = host_batches[TRAIN_CHECK_STEP]["tokens"].reshape(-1)
+    rows = {"embed.table": torch.as_tensor(np.concatenate([
+        np.unique(seen)[:TRAIN_CHECK_ROWS // 2],
+        rng.integers(0, cfg.vocab_size, TRAIN_CHECK_ROWS // 2)])),
+        "units.20.l0.mlp.w_up.w": torch.as_tensor(
+            rng.integers(0, cfg.d_model, TRAIN_CHECK_ROWS)),
+        "units.20.l0.mix.wq.b": None, "final_norm.g": None}
+
+    def snapshot(st, name):
+        r = rows[name]
+        return {"p": host_tree(torch, params[name], r),
+                "m": host_tree(torch, st["opt"]["m"][name], r),
+                "v": host_tree(torch, st["opt"]["v"][name], r)}
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    steps, check = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for s, hb in enumerate(host_batches):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in hb.items()}
+        hooks, grads = [], {}
+        if s == TRAIN_CHECK_STEP:
+            before = {n: snapshot(state, n) for n in checked}
+            for n in checked:
+                hooks.append(params[n].register_post_accumulate_grad_hook(
+                    lambda p, n=n: grads.__setitem__(
+                        n, host_tree(torch, p.grad, rows[n]))))
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ev0.record()
+        state, met = step_fn(state, batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        for h in hooks:
+            h.remove()
+        met = {k: float(v) for k, v in met.items()}
+        if not all(np.isfinite(v) for v in met.values()):
+            fail(f"step {s}: metrics {met}")
+        steps.append(dict(met, ms=ev0.elapsed_time(ev1), host_ms=host_ms,
+                          hooks=bool(hooks)))
+        if s == TRAIN_CHECK_STEP:
+            for n in checked:
+                check[n] = hold_update(
+                    np, n, before[n], snapshot(state, n), grads[n], step=s,
+                    lr=met["lr"], norm=met["grad_norm"], tcfg=tcfg)
+    peak8 = torch.cuda.max_memory_allocated()
+    # the median leaves out the first step and the one whose grad hooks
+    # copy rows to the host each microbatch
+    ms = [r["ms"] for r in steps[1:] if not r["hooks"]]
+    # One profiled window of the same 8-bit state: a step of one
+    # microbatch of the timed steps' shape (B 1 × S TRAIN_S) and the
+    # whole update; a full step would be ≈ 1.5 M profiler events.
+    _, window_fn, _ = make_train_step(
+        cfg, dataclasses.replace(tcfg, microbatch=0))
+    one = {k: torch.as_tensor(v[:1], device=dev)
+           for k, v in pipe.global_batch(TRAIN_STEPS).items()}
+    box = {}
+    t0 = time.perf_counter()
+    window = device_profile(torch, lambda: box.update(
+        out=window_fn(state, one)))
+    window["seconds"] = time.perf_counter() - t0
+    state = box.pop("out")[0]
+    window.update(B=1, S=TRAIN_S, microbatches=1)
+    tokens = TRAIN_B * TRAIN_S
+    bf16_ops, f32_ops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    ob = opt_bytes(state)
+    out["adamw8bit"] = {
+        "B": TRAIN_B, "S": TRAIN_S, "microbatch": TRAIN_MICRO,
+        "steps": steps, "ln_V": float(np.log(cfg.vocab_size)),
+        "step_ms_median": statistics.median(ms), "median_of_steps": [
+            i for i, r in enumerate(steps) if i and not r["hooks"]],
+        "first_step_ms":
+        steps[0]["ms"], "tokens_per_s": tokens / statistics.median(ms) * 1e3,
+        "bound": {"bf16_flops": bf16_ops, "f32_flops": f32_ops,
+                  "flops_ms": (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS)
+                  * 1e3, "opt_bytes": ob, "opt_bytes_ms": ob / HBM_BPS * 1e3},
+        "peak_bytes": peak8, "held_before_bytes": held,
+        "reckoned_state_bytes": sum(reckon.values()),
+        "sampled_updates": check, "profiled_window": window}
+    del state, params, batch, grads, one, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_part": "adamw8bit", **out["adamw8bit"]}),
+          flush=True)
+
+    # ------------------------------------- (a) full width, float32 adamw
+    tcfg32 = TrainConfig(optimizer="adamw", warmup_steps=0,
+                         total_steps=TRAIN_F32_STEPS)
+    init, step_fn, abstract = make_train_step(cfg, tcfg32)
+    meta = abstract()
+    sb = {"params": tree_bytes(list(meta["params"].parameters())),
+          "opt": tree_bytes(meta["opt"]["m"]) + tree_bytes(meta["opt"]["v"])}
+    del meta
+    S32 = TRAIN_F32_S
+    if train_peak_reckon(cfg, 1, S32, sb) > TRAIN_MEM_CAP:
+        S32 = 1024
+    reckoned32 = train_peak_reckon(cfg, 1, S32, sb)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = init(torch.Generator(device=dev).manual_seed(0))
+    pipe32 = TokenPipeline(vocab_size=cfg.vocab_size, batch=1, seq_len=S32,
+                           seed=0)
+    steps32 = []
+    for s in range(TRAIN_F32_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe32.global_batch(s).items()}
+        torch.cuda.synchronize()
+        ev0.record()
+        state, met = step_fn(state, batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        met = {k: float(v) for k, v in met.items()}
+        if not all(np.isfinite(v) for v in met.values()):
+            fail(f"float32 step {s}: metrics {met}")
+        steps32.append(dict(met, ms=ev0.elapsed_time(ev1)))
+    peak32 = torch.cuda.max_memory_allocated()
+    box = {}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             pipe32.global_batch(TRAIN_F32_STEPS).items()}
+    t0 = time.perf_counter()
+    prof = device_profile(torch, lambda: box.update(
+        out=step_fn(state, batch)))
+    prof["seconds"] = time.perf_counter() - t0
+    state = box.pop("out")[0]
+    bf16_ops, f32_ops = train_flops(cfg, 1, S32)
+    ob = opt_bytes(state)
+    ms = [r["ms"] for r in steps32[1:]]
+    out["adamw"] = {
+        "B": 1, "S": S32, "steps": steps32,
+        "step_ms_median": statistics.median(ms),
+        "tokens_per_s": S32 / statistics.median(ms) * 1e3,
+        "bound": {"bf16_flops": bf16_ops, "f32_flops": f32_ops,
+                  "flops_ms": (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS)
+                  * 1e3, "opt_bytes": ob, "opt_bytes_ms": ob / HBM_BPS * 1e3},
+        "peak_bytes": peak32, "held_before_bytes": held,
+        "reckoned_peak_bytes": reckoned32,
+        "profiled_step": prof}
+    if peak32 - held > TRAIN_MEM_CAP:
+        fail(f"the float32 run peaked at {peak32 - held} B")
+    del state, batch, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke_archs(torch, np, dev):
+    """(b) the ten smoke archs' train step (float32 AdamW) on the card
+    against the CPU port from one state made on the CPU; on llama3-8b also
+    the widened 8-bit config, the int8 wire and two microbatches (against
+    the CPU, and against one batch on the card)."""
+    import dataclasses
+
+    from repro_torch import models as pm
+    from repro_torch.configs import ARCHS, TrainConfig, get_config
+    from repro_torch.training import make_train_step
+
+    smoke = {}
+    for arch in ARCHS:
+        scfg = get_config(arch, smoke=True)
+        smoke[arch], _ = train_parity(torch, np, pm, make_train_step, scfg,
+                                      TrainConfig(warmup_steps=0,
+                                                  learning_rate=1e-3), dev,
+                                      arch)
+    lcfg = get_config("llama3-8b", smoke=True)
+    wide = dataclasses.replace(lcfg, d_model=256, d_ff=128, vocab_size=256)
+    for name, c, t in (
+            ("llama3-8b adamw8bit widened", wide,
+             TrainConfig(optimizer="adamw8bit", warmup_steps=0,
+                         learning_rate=1e-3)),
+            ("llama3-8b int8 wire", lcfg,
+             TrainConfig(grad_compression="int8", warmup_steps=0,
+                         learning_rate=1e-3)),
+            ("llama3-8b microbatch 2", lcfg,
+             TrainConfig(microbatch=2, warmup_steps=0, learning_rate=1e-3))):
+        smoke[name], _ = train_parity(torch, np, pm, make_train_step, c, t,
+                                      dev, name)
+    # two microbatches against one batch, both on the card
+    init, step2, _ = make_train_step(lcfg, TrainConfig(
+        microbatch=2, warmup_steps=0, learning_rate=1e-3))
+    _, step0, _ = make_train_step(lcfg, TrainConfig(
+        microbatch=0, warmup_steps=0, learning_rate=1e-3))
+    a = init(torch.Generator(device=dev).manual_seed(0))
+    b = state_to(torch, pm, lcfg, a, dev)
+    bt = {k: torch.as_tensor(v, device=dev)
+          for k, v in train_smoke_batch(np, lcfg, 3).items()}
+    a, ma = step2(a, bt)
+    b, mb = step0(b, bt)
+    dl = abs(float(ma["loss"]) - float(mb["loss"]))
+    with torch.no_grad():
+        dp = max(float(((x - y).abs() - 1e-3 * y.abs()).max())
+                 for x, y in zip(a["params"].parameters(),
+                                 b["params"].parameters()))
+    smoke["microbatch 2 vs 0 on the card"] = {"loss": dl,
+                                             "param_over_rtol": dp}
+    if not (dl <= 1e-4 * abs(float(mb["loss"])) and dp <= 1e-5):
+        fail(f"two microbatches differ from one batch on the card: loss "
+             f"{dl}, weights {dp}")
+    return smoke
+
+
+def train_loop_checks(torch, np, dev, root):
+    """(c) ``train()`` on the reference loop tests' tiny config on the
+    card: learning over 40 steps, 20 + 10 steps against 30, a child
+    SIGTERM'd after its fourth batch, ``python -m
+    repro_torch.launch.train``."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.training import train
+
+    lcfg = get_config("llama3-8b", smoke=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tiny = dataclasses.replace(lcfg, vocab_size=64)
+        tt = TrainConfig(learning_rate=3e-3, warmup_steps=5,
+                         total_steps=60, weight_decay=0.01, seed=0)
+        tpipe = TokenPipeline(vocab_size=64, batch=4, seq_len=32, seed=1)
+        kw = dict(ckpt_every=100, verbose=False, handle_preemption=False,
+                  device=dev)
+        t0 = time.perf_counter()
+        _, hist = train(tiny, tt, tpipe, workdir=os.path.join(tmp, "l"),
+                        num_steps=40, **kw)
+        loop = {"steps_40_s": time.perf_counter() - t0}
+        first = float(np.mean([h["loss"] for h in hist[:5]]))
+        last = float(np.mean([h["loss"] for h in hist[-5:]]))
+        loop["loss_first5_last5"] = [first, last]
+        if not last < first - 0.2:
+            fail(f"the loop did not learn on the card: {first} → {last}")
+        sa, _ = train(tiny, tt, tpipe, workdir=os.path.join(tmp, "a"),
+                      num_steps=30, **kw)
+        train(tiny, tt, tpipe, workdir=os.path.join(tmp, "b"),
+              num_steps=20, **dict(kw, ckpt_every=10))
+        sb_, hb = train(tiny, tt, tpipe, workdir=os.path.join(tmp, "b"),
+                        num_steps=30, **dict(kw, ckpt_every=10))
+        worst, equal = 0.0, True
+        with torch.no_grad():
+            for x, y in zip(sa["params"].parameters(),
+                            sb_["params"].parameters()):
+                equal &= bool(torch.equal(x, y))
+                worst = max(worst, float(
+                    ((x - y).abs() - LOOP_RTOL * y.abs()).max()))
+        loop["restart"] = {"resumed_steps": [h["step"] for h in hb],
+                           "bit_equal": equal, "max_over_rtol": worst}
+        if not (worst <= LOOP_ATOL and [h["step"] for h in hb]
+                == list(range(20, 30))):
+            fail(f"20 + 10 steps differ from 30 on the card: {worst}")
+        # a child SIGTERM'd after its fourth batch, and the launcher, in two
+        # processes at once (each spends most of its time starting up)
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        wd = os.path.join(tmp, "child")
+        t0 = time.perf_counter()
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "llama3-8b", "--steps", "10", "--device", "cuda", "--workdir",
+             os.path.join(tmp, "launch")], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        child = subprocess.Popen(
+            [sys.executable, "-c", TRAIN_CHILD, wd], env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for line in child.stdout:
+            if line.startswith("BATCH 3"):
+                break
+        child.send_signal(signal.SIGTERM)
+        cout, cerr = child.communicate(input="\n", timeout=CHILD_TIMEOUT_S)
+        from repro_torch.checkpoint import CheckpointManager
+        latest = CheckpointManager(os.path.join(wd, "ckpt")).latest_step()
+        loop["sigterm_child"] = {"returncode": child.returncode,
+                                 "checkpoint": latest,
+                                 "seconds": time.perf_counter() - t0}
+        if child.returncode != 0 or "DONE 4" not in cout or latest != 4:
+            fail(f"the SIGTERM'd child: rc {child.returncode}, checkpoint "
+                 f"{latest}, {cout[-500:]} {cerr[-1500:]}")
+        lout, lerr = launcher.communicate(timeout=CHILD_TIMEOUT_S)
+        loop["launcher"] = {"returncode": launcher.returncode,
+                            "seconds": time.perf_counter() - t0,
+                            "last_line": lout.strip().splitlines()[-1]
+                            if lout.strip() else ""}
+        if launcher.returncode != 0 or "[train] done" not in lout:
+            fail(f"the train launcher: rc {launcher.returncode} "
+                 f"{lout[-500:]} {lerr[-1500:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return loop
+
 def bench_resume_row(torch, EDM):
     """The reference bench's journal row (``benchmarks/bench_ccm.py``,
     ``_run_resume_overhead``) on the card: ``EDMConfig(E=3, cache=False)``
@@ -3184,6 +3917,12 @@ def main() -> None:
     print(smi)
     print(json.dumps({"lm_path": lm_out}))
 
+    # ----------------------------------------------- 13. LM training path
+    train_out, train_launches = run_train_path(torch, np, dev, root,
+                                               reset_counts, counts)
+    print(smi)
+    print(json.dumps({"train_path": train_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -3194,6 +3933,7 @@ def main() -> None:
         r["serving_launches"] = serving_launches[r["name"]]
         r["sharded_launches"] = sharded_launches[r["name"]]
         r["lm_launches"] = lm_launches[r["name"]]
+        r["train_launches"] = train_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

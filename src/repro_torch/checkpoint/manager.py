@@ -12,7 +12,10 @@
 A tree is a leaf or a dict, list or tuple of trees; dict keys are walked
 in sorted order. A leaf is an ``np.ndarray`` or a ``torch.Tensor``
 (saved through ``.cpu().numpy()``); ``restore`` hands each leaf back as
-the type, dtype and device of the matching leaf of ``like``.
+the type, dtype and device of the matching leaf of ``like``. An
+``nn.Module`` (a model's parameters) is saved as the dict of its named
+parameters, and ``restore`` writes them back into the module of ``like``
+in place and returns that module.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ def _flatten(tree) -> tuple[list, str]:
     leaves: list = []
 
     def walk(t) -> str:
+        if isinstance(t, torch.nn.Module):
+            t = dict(t.named_parameters())
         if isinstance(t, dict):
             keys = sorted(t)
             return "{" + ",".join(f"{k!r}:{walk(t[k])}" for k in keys) + "}"
@@ -46,6 +51,12 @@ def _unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
+        if isinstance(t, torch.nn.Module):
+            params = dict(t.named_parameters())
+            with torch.no_grad():
+                for k in sorted(params):
+                    params[k].copy_(next(it))
+            return t
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):

@@ -1,2 +1,2 @@
-"""Launchers of the port: the serve CLI (``python -m
-repro_torch.launch.serve``)."""
+"""Launchers of the port: the serve and train CLIs (``python -m
+repro_torch.launch.serve``, ``python -m repro_torch.launch.train``)."""

@@ -173,11 +173,18 @@ def embedding_init(rng: Init, vocab, d_model, dtype, scale: float = 1.0):
 
 def embed(p, tokens, dtype=None):
     """Token embedding gather. The reference casts the whole table to the
-    compute dtype and then gathers; gathering the rows first and casting
-    them gives the same bits (a cast is elementwise) without copying a
-    (vocab, d_model) table every step."""
-    rows = p["table"][tokens]
-    return rows if dtype is None else rows.to(torch_dtype(dtype))
+    compute dtype and then gathers, so its backward sums a row's
+    gradients in the compute dtype and rounds the table's gradient to the
+    table's dtype once; under autograd the port does the same. Without
+    gradients, gathering the rows first and casting them gives the same
+    bits (a cast is elementwise) without copying a (vocab, d_model) table
+    every step."""
+    table = p["table"]
+    if dtype is None or torch_dtype(dtype) == table.dtype:
+        return table[tokens]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return table.to(torch_dtype(dtype))[tokens]
+    return table[tokens].to(torch_dtype(dtype))
 
 
 def unembed(p, x):

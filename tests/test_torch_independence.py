@@ -56,7 +56,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.mamba, repro_torch.models.xlstm, "
             "repro_torch.models.transformer, repro_torch.models.carry, "
             "repro_torch.serving.engine, repro_torch.launch, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.grad_utils, "
+            "repro_torch.optim.schedule, repro_torch.training, "
+            "repro_torch.training.step, repro_torch.training.loop, "
+            "repro_torch.training.carry, repro_torch.data.pipeline, "
+            "repro_torch.distributed.compression, "
+            "repro_torch.launch.train\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a, smoke=s) for a in ARCHS for s in (0, 1)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
