@@ -182,8 +182,9 @@ phase passed; any failure exits nonzero. Phases:
    as configured (40 layers, d_model 2,560, vocab 151,936, bf16 over
    float32 parameters, random weights from a generator seeded 0 on the
    card; no cut): ``make_train_step`` with ``adamw8bit``, 4 steps of
-   ``TokenPipeline(vocab, batch 4, seq_len 4,096, seed 0)`` in 4
-   microbatches (train_4k's sequence; its global batch of 256 cut to 4):
+   ``TokenPipeline(vocab, batch 1, seq_len 4,096, seed 0)`` in one
+   microbatch (train_4k's sequence; its global batch of 256 cut to 1), the
+   last step under the profiler (busy time, idle share):
    parameter and optimizer-state bytes beside the reckoning (the
    reference's stacked eligibility rule, checked leaf by leaf: int8 codes
    of the parameter's shape, float32 scales), each step's metrics beside
@@ -202,6 +203,27 @@ phase passed; any failure exits nonzero. Phases:
    steps against 30 within rtol 1e-5, atol 1e-6, a child SIGTERM'd after
    its fourth batch exiting 0 with step 4 saved, and ``python -m
    repro_torch.launch.train --arch llama3-8b --steps 10 --device cuda``.
+14. LM mesh path — the LM substrate on ``torch.distributed`` meshes
+   (``repro_torch.launch.mesh``, ``.launch.sharding``, ``models.meshctx``,
+   ``carry.place_params``), plain eager PyTorch, none of the EDM kernels
+   (``mesh_launches`` 0 each). For llama3-8b and deepseek-v2-lite-16b as
+   configured (random weights from a generator seeded 0 on the card): the
+   plain ``ServeEngine`` (4 prompts of 3–9 tokens, 32 new tokens, s_max
+   128) and its sequences replayed for every step's logits. (a) llama3-8b
+   on a world of one, NCCL, mesh (1, 1), sequence-parallel decode on. (b)
+   llama3-8b and (c) deepseek-v2-lite-16b (its 64 experts over "model",
+   16 a rank) on ``MESH_RANKS`` gloo ranks on the card (``MESH_CHILD``),
+   mesh (1, 4), each rank drawing its blocks leaf by leaf and generating
+   ``MESH_RANK_NEW`` tokens. Each held to the plain run's logits by
+   teacher forcing over its whole sequences, within ``LM_BF16_ATOL``
+   (deepseek-v2-lite with float32 activations, ``MESH_F32``: within
+   ``MESH_F32_ATOL`` wherever every routing so far agreed, the flipped
+   routings counted), greedy tokens' first divergence reported; decode ms a step (CUDA
+   events) and one step's collectives by kind on each rank, peak memory a
+   rank. (d) unit 0 and the final norm of the world of one's llama3-8b,
+   saved, restored by every rank onto (1, 4) (``restore(shardings=)``),
+   bit-equal to its drawn blocks. The four ranks check code paths and
+   collectives, not scaling: they share one card.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -283,15 +305,35 @@ LM_BF16_ATOL = 0.25
 LM_SMOKE_TOL = 1e-4
 
 TRAIN_ARCH = "qwen1.5-4b"   # the training path at full width, as configured
-TRAIN_B, TRAIN_S = 4, 4096  # train_4k's sequence; its global batch 256 → 4
-TRAIN_MICRO = 4             # microbatches of one sequence each
+TRAIN_B, TRAIN_S = 1, 4096  # train_4k's sequence; its global batch 256 → 1
+TRAIN_MICRO = 1             # one microbatch (phase 13 (b) checks several)
 TRAIN_STEPS = 4             # adamw8bit steps (warmup 0, total 4)
 TRAIN_F32_STEPS = 3         # then float32 adamw on a fresh state, B = 1,
 TRAIN_F32_S = 2048          # S = 2048 (1024 when the reckoned peak > 76 GB)
 TRAIN_MEM_CAP = 76e9        # the reckoning's ceiling for the float32 run
-TRAIN_CHECK_STEP = 3        # the step whose sampled updates are recomputed
+TRAIN_CHECK_STEP = 3        # the step whose sampled updates are recomputed,
+                            # run under the profiler
 TRAIN_CHECK_ROWS = 8        # rows of each checked leaf
 BF16_FLOPS = 989e12
+MESH_ARCHS = ("llama3-8b", "deepseek-v2-lite-16b")  # phase 14, full width
+MESH_RANKS = 4              # gloo ranks on the one card, mesh (1, 4)
+# deepseek-v2-lite's activations in float32 (its configured bf16 over the
+# same float32 weights): in bf16 a few ulps of another summation order
+# flip top-6 expert choices (0.65 in logits across paths at bf16), so the
+# expert-parallel path is held in float32, where the paths differ only in
+# rounding; logits within MESH_F32_ATOL wherever every routing so far
+# agreed, and the routings that did not are counted.
+MESH_F32 = ("deepseek-v2-lite-16b",)
+MESH_F32_ATOL = 1e-3
+MESH_MIN_AGREED = 0.5       # of the (row, step) pairs the check must cover
+MESH_CHILD_TIMEOUT_S = 600
+MESH_RANK_NEW = 8           # new tokens of the four ranks' own generate (the
+                            # held replay covers all LM_MAX_NEW: ≈ 1.6 s a
+                            # step there, four processes on one card)
+# The checkpoint of phase 14 (d): these leaves of the world of one's
+# llama3-8b, restored onto the four ranks' mesh.
+MESH_CKPT_PREFIXES = ("units.0.", "final_norm.")
+
 # The smoke archs' train step on the card against the CPU port (float32,
 # TF32 off), one step from the same state, at the CPU tests' tolerances
 # (tests/torch_train.py): metrics |Δ| ≤ 2e-5 (1 + |ref|); weights in two
@@ -497,6 +539,80 @@ print(json.dumps({"sharded_child": {
     "rank": rank, "seconds": sec, "padded_rows": int(Xp.shape[0]),
     "launches": {n: fn.launches for n, fn in wrappers.items()}}}))
 dist.destroy_process_group()
+"""
+
+
+# A rank of the mesh phase's world on the one card: gloo on a FileStore
+# under ``out``, every rank on cuda:0, mesh (1, MESH_RANKS) over ("data",
+# "model"). Draws ``arch`` as configured leaf by leaf (``place_params``),
+# generates with sequence-parallel decode on, replays the world of one's
+# sequences (teacher forcing) against its logits, and, given a checkpoint
+# directory, restores its leaves onto the mesh (``restore(shardings=)``).
+MESH_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, out, root, arch, ckpt = sys.argv[1:7]
+rank, world = int(rank), int(world)
+sys.path.insert(0, root)
+import chip_smoke as cs
+torch.set_num_threads(2)  # four ranks share the host's cores
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(
+    os.path.join(out, "store"), world), rank=rank, world_size=world)
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import NamedSharding, param_spec
+from repro_torch.models import carry, meshctx
+from repro_torch.models import transformer as tf
+from repro_torch.serving import ServeEngine
+
+dev = torch.device("cuda", 0)
+mesh = make_mesh((1, world), ("data", "model"))
+cfg = cs.mesh_config(arch)
+ref = json.load(open(os.path.join(out, "sequences.json")))
+t0 = time.perf_counter()
+placed = carry.place_params(cfg, mesh, generator=torch.Generator(
+    device=dev).manual_seed(0))
+torch.cuda.synchronize()
+rec = {"init_s": time.perf_counter() - t0, "local_param_bytes": sum(
+    p.to_local().numel() * p.element_size() for p in placed.parameters())}
+meshctx.set_mesh(mesh)
+meshctx.set_seqpar_decode(True)
+res, rec["generate_s"] = cs.host_s(torch, lambda: ServeEngine(
+    cfg, placed, s_max=ref["s_max"]).generate(ref["prompts"],
+                                              max_new=cs.MESH_RANK_NEW))
+rec["first_divergence"] = cs.first_divergence(ref["tokens"], res.tokens,
+                                              ref["prompts"])
+lg, rec["step_ms"], rec["collectives_a_step"], routes = cs.lm_teacher_logits(
+    torch, cfg, placed, ref["tokens"], ref["s_max"], dev)
+want = np.load(os.path.join(out, "logits.npy"))
+rec.update(cs.held_logits(np, lg, want, routes, np.load(
+    os.path.join(out, "routes.npy")) if routes is not None else None))
+rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+if ckpt != "-":
+    mgr = CheckpointManager(ckpt)
+    names = json.load(open(os.path.join(ckpt, "names.json")))
+    params = dict(placed.named_parameters())
+    like = {n: torch.empty(params[n].shape, dtype=params[n].dtype,
+                           device="meta") for n in names}
+    sh = {n: NamedSharding(mesh, param_spec(n, params[n].shape, cfg, mesh))
+          for n in names}
+    t0 = time.perf_counter()
+    got = mgr.restore(like, shardings=sh)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restore_equal"] = all(
+        list(got[n].placements) == list(params[n].placements)
+        and torch.equal(got[n].to_local(), params[n].to_local())
+        for n in names)
+    rec["restore_leaves"] = len(names)
+meshctx.set_seqpar_decode(False)
+meshctx.set_mesh(None)
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"mesh_child": rec}))
 """
 
 
@@ -3065,9 +3181,10 @@ def train_full_width(torch, np, dev):
     """(a) ``TRAIN_ARCH`` as configured, uncut: ``adamw8bit`` steps at B =
     ``TRAIN_B``, S = ``TRAIN_S`` in ``TRAIN_MICRO`` microbatches through
     ``make_train_step``, the state's layout and bytes against the
-    reckoning, sampled updates of four leaves against ``adam64``, one
-    step of one microbatch under the profiler; then float32 ``adamw`` on
-    a fresh state at B = 1 and one step under the profiler."""
+    reckoning, sampled updates of four leaves against ``adam64`` at step
+    ``TRAIN_CHECK_STEP``, which runs under the profiler; then float32
+    ``adamw`` on a fresh state at B = 1 and one step under the
+    profiler."""
     import gc
 
     from repro_torch.configs import TrainConfig, get_config
@@ -3169,9 +3286,18 @@ def train_full_width(torch, np, dev):
                         n, host_tree(torch, p.grad, rows[n]))))
         torch.cuda.synchronize()
         h0 = time.perf_counter()
-        ev0.record()
-        state, met = step_fn(state, batch)
-        ev1.record()
+        box = {}
+
+        def step():  # reads this iteration's state and batch when called
+            ev0.record()
+            box["out"] = step_fn(state, batch)
+            ev1.record()
+
+        if s == TRAIN_CHECK_STEP:
+            window = device_profile(torch, step)
+        else:
+            step()
+        state, met = box.pop("out")
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - h0) * 1e3
         for h in hooks:
@@ -3187,23 +3313,12 @@ def train_full_width(torch, np, dev):
                     np, n, before[n], snapshot(state, n), grads[n], step=s,
                     lr=met["lr"], norm=met["grad_norm"], tcfg=tcfg)
     peak8 = torch.cuda.max_memory_allocated()
-    # the median leaves out the first step and the one whose grad hooks
-    # copy rows to the host each microbatch
+    # the median leaves out the first step and the profiled one, whose
+    # grad hooks copy rows to the host
     ms = [r["ms"] for r in steps[1:] if not r["hooks"]]
-    # One profiled window of the same 8-bit state: a step of one
-    # microbatch of the timed steps' shape (B 1 × S TRAIN_S) and the
-    # whole update; a full step would be ≈ 1.5 M profiler events.
-    _, window_fn, _ = make_train_step(
-        cfg, dataclasses.replace(tcfg, microbatch=0))
-    one = {k: torch.as_tensor(v[:1], device=dev)
-           for k, v in pipe.global_batch(TRAIN_STEPS).items()}
-    box = {}
-    t0 = time.perf_counter()
-    window = device_profile(torch, lambda: box.update(
-        out=window_fn(state, one)))
-    window["seconds"] = time.perf_counter() - t0
-    state = box.pop("out")[0]
-    window.update(B=1, S=TRAIN_S, microbatches=1)
+    window.update(step=TRAIN_CHECK_STEP, B=TRAIN_B, S=TRAIN_S,
+                  microbatches=TRAIN_MICRO,
+                  seconds=steps[TRAIN_CHECK_STEP]["host_ms"] * 1e-3)
     tokens = TRAIN_B * TRAIN_S
     bf16_ops, f32_ops = train_flops(cfg, TRAIN_B, TRAIN_S)
     ob = opt_bytes(state)
@@ -3220,7 +3335,7 @@ def train_full_width(torch, np, dev):
         "peak_bytes": peak8, "held_before_bytes": held,
         "reckoned_state_bytes": sum(reckon.values()),
         "sampled_updates": check, "profiled_window": window}
-    del state, params, batch, grads, one, box
+    del state, params, batch, grads, box, step
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"train_part": "adamw8bit", **out["adamw8bit"]}),
@@ -3429,6 +3544,279 @@ def train_loop_checks(torch, np, dev, root):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return loop
+
+def first_divergence(want, got, prompts):
+    """Per row, the index of the first generated token that differs between
+    two generations (None where they agree)."""
+    out = []
+    for w, g, p in zip(want, got, prompts):
+        d = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        out.append(None if d is None else d - len(p))
+    return out
+
+
+def mesh_config(arch):
+    """Phase 14's config of ``arch``: as configured, with float32
+    activations for the archs of ``MESH_F32``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return (dataclasses.replace(cfg, dtype="float32") if arch in MESH_F32
+            else cfg)
+
+
+def held_logits(np, got, want, routes, want_routes):
+    """Logits against the plain run's: the largest |Δ| over every (step,
+    row), and for an MoE model over the pairs where every routing of that
+    row so far (each layer's top-k expert set) agreed, with the count of
+    token-layer routings that did not and the share of pairs kept."""
+    err = np.abs(got - want).max(-1)  # (steps, B)
+    out = {"max_abs_err": float(err.max())}
+    if routes is None:
+        return out
+    flip = (np.sort(routes, -1) != np.sort(want_routes, -1)).any(-1)
+    agreed = ~np.logical_or.accumulate(flip.any(1), axis=0)  # (steps, B)
+    out.update(routing_flips=int(flip.sum()), routings=int(flip.size),
+               agreed_share=float(agreed.mean()),
+               max_abs_err_agreed=float(err[agreed].max())
+               if agreed.any() else None)
+    return out
+
+
+def lm_teacher_logits(torch, cfg, model, seqs, s_max, dev):
+    """``decode_step`` over whole token rows ``seqs`` (each a prompt and its
+    continuation, left-padded with its first token as the engine replays
+    them), on the mesh set in ``meshctx`` if any: every step's logits on the
+    host ((steps, B, V) float32), the steps' CUDA-event ms, one step's
+    collectives by kind (``meshctx``'s counts, and the host's ms inside
+    them, the step's host ms beside), and for an MoE model each
+    step's top-k expert ids by layer ((steps, layers, B, k); else None)."""
+    import numpy as np
+
+    from repro_torch.models import meshctx
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    L = max(map(len, seqs))
+    toks = torch.as_tensor(np.array(
+        [[q[0]] * (L - len(q)) + list(q) for q in seqs], np.int32),
+        device=dev)
+    B = toks.shape[0]
+    cache = tf.init_cache(cfg, B, s_max, device=dev, mesh=meshctx.get_mesh())
+    out = np.empty((L - 1, B, cfg.vocab_size), np.float32)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ms, coll, routes = [], {}, []
+    route = moe._route
+
+    def recorded(xf, router, k, E, cf):
+        r = route(xf, router, k, E, cf)
+        step.append(torch.sort(r[5], dim=-1, descending=True,
+                               stable=True).indices[:, :k].cpu().numpy())
+        return r
+
+    moe._route = recorded
+    try:
+        with torch.no_grad():
+            for t in range(L - 1):
+                step = []
+                meshctx.reset_collective_counts()
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                ev0.record()
+                lg, cache = tf.decode_step(model, cfg, toks[:, t:t + 1],
+                                           cache, t)
+                ev1.record()
+                torch.cuda.synchronize()
+                ms.append(ev0.elapsed_time(ev1))
+                if t == (L - 1) // 2:
+                    coll = dict(meshctx.collective_counts(), host_ms={
+                        k: v * 1e3 for k, v in
+                        meshctx.collective_seconds().items()},
+                        step_host_ms=(time.perf_counter() - h0) * 1e3)
+                out[t] = lg[:, 0].float().cpu().numpy()
+                routes.append(step)
+    finally:
+        moe._route = route
+    del cache
+    routes = np.array(routes, np.int16) if routes[0] else None
+    return out, {"median": statistics.median(ms), "min": min(ms),
+                 "max": max(ms), "steps": len(ms)}, coll, routes
+
+
+def mesh_ranks(root, wd, arch, ckpt):
+    """``MESH_RANKS`` processes of ``MESH_CHILD`` on the card; their
+    records by rank (any rank that fails, or prints none, fails the
+    phase)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_CHILD, str(r), str(MESH_RANKS), wd, root,
+         arch, ckpt], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(MESH_RANKS)]
+    results = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=MESH_CHILD_TIMEOUT_S)
+            results.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    child = {}
+    for r, (rc, o, e) in enumerate(results):
+        if rc != 0:
+            fail(f"{arch}: mesh rank {r} exited {rc}: {e[-2000:]}")
+        for line in o.splitlines():
+            if line.startswith('{"mesh_child"'):
+                child[r] = json.loads(line)["mesh_child"]
+    if sorted(child) != list(range(MESH_RANKS)):
+        fail(f"{arch}: mesh ranks printed no record: {sorted(child)}")
+    return child, wall
+
+
+def run_mesh_path(torch, np, dev, root, reset_counts, counts):
+    """The LM substrate on a mesh (``repro_torch.launch.mesh``,
+    ``.launch.sharding``, ``models.meshctx``, sequence-parallel decode,
+    expert-parallel MoE), plain eager PyTorch (none of the EDM kernels;
+    their counts must stay 0). For each of ``MESH_ARCHS`` as configured:
+    the plain ``ServeEngine`` in this process generates and its sequences
+    are replayed for their logits; (a, llama3-8b) a world of one on NCCL,
+    mesh (1, 1), seqpar on, held to them; (b, c) ``MESH_RANKS`` gloo ranks
+    on the card, mesh (1, 4), each drawing its blocks leaf by leaf,
+    generating with seqpar on (deepseek-v2-lite through the expert-
+    parallel MoE, 16 experts a rank) and replaying the plain sequences:
+    logits held (``held_logits``), greedy tokens' first divergence
+    reported; (d) leaves of the world of one's llama3-8b saved, restored by
+    every rank onto its mesh by ``restore(shardings=)``, bit-equal to its
+    drawn blocks. Returns (record, launches)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import models as pm
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import carry, meshctx
+    from repro_torch.serving import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t_phase = time.perf_counter()
+    out, secs = {"ranks": MESH_RANKS, "four_rank_backend": "gloo"}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        for arch in MESH_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = mesh_config(arch)
+            tol = LM_BF16_ATOL if cfg.dtype == "bfloat16" else MESH_F32_ATOL
+            wd = os.path.join(tmp, arch)
+            os.makedirs(wd)
+            rec = out[arch] = {"n_layers": cfg.n_layers,
+                               "d_model": cfg.d_model,
+                               "vocab_size": cfg.vocab_size,
+                               "params": cfg.param_count(),
+                               "dtype": cfg.dtype, "tol": tol}
+            prompts = lm_prompts(np, cfg.vocab_size)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            torch.cuda.reset_peak_memory_stats()
+            model = pm.init_params(cfg, device=dev, generator=gen)
+            res, gen_s = host_s(torch, lambda: ServeEngine(
+                cfg, model, s_max=LM_S_MAX).generate(prompts,
+                                                     max_new=LM_MAX_NEW))
+            want, step_ms, _, routes = lm_teacher_logits(
+                torch, cfg, model, res.tokens, LM_S_MAX, dev)
+            rec["plain"] = {"generate_s": gen_s, "step_ms": step_ms,
+                            "peak_bytes": torch.cuda.max_memory_allocated()}
+            np.save(os.path.join(wd, "logits.npy"), want)
+            if routes is not None:
+                np.save(os.path.join(wd, "routes.npy"), routes)
+            with open(os.path.join(wd, "sequences.json"), "w") as f:
+                json.dump({"prompts": prompts, "tokens": res.tokens,
+                           "s_max": LM_S_MAX}, f)
+            ckpt = "-"
+            if arch == "llama3-8b":
+                ckpt = os.path.join(wd, "ckpt")
+                params = dict(model.named_parameters())
+                names = [n for n in params if n.startswith(MESH_CKPT_PREFIXES)]
+                _, save_s = host_s(torch, lambda: CheckpointManager(
+                    ckpt).save(0, {n: params[n] for n in names}))
+                with open(os.path.join(ckpt, "names.json"), "w") as f:
+                    json.dump(names, f)
+                rec["checkpoint"] = {"leaves": len(names), "save_s": save_s,
+                                     "bytes": sum(params[n].numel() * 4
+                                                  for n in names)}
+                del params
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            if arch == "llama3-8b":  # (a) a world of one on NCCL
+                mesh = make_mesh((1, 1), ("data", "model"))
+                torch.cuda.reset_peak_memory_stats()
+                placed, init_s = host_s(torch, lambda: carry.place_params(
+                    cfg, mesh, generator=torch.Generator(
+                        device=dev).manual_seed(0)))
+                meshctx.set_mesh(mesh)
+                meshctx.set_seqpar_decode(True)
+                try:
+                    res1, gen1_s = host_s(torch, lambda: ServeEngine(
+                        cfg, placed, s_max=LM_S_MAX).generate(
+                            prompts, max_new=LM_MAX_NEW))
+                    lg1, step1, coll1, _ = lm_teacher_logits(
+                        torch, cfg, placed, res.tokens, LM_S_MAX, dev)
+                finally:
+                    meshctx.set_seqpar_decode(False)
+                    meshctx.set_mesh(None)
+                err1 = float(np.abs(lg1 - want).max())
+                rec["world_of_one"] = {
+                    "backend": str(dist.get_backend()), "init_s": init_s,
+                    "generate_s": gen1_s, "step_ms": step1,
+                    "collectives_a_step": coll1, "max_abs_err": err1,
+                    "first_divergence": first_divergence(
+                        res.tokens, res1.tokens, prompts),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+                if not err1 <= tol:
+                    fail(f"{arch}: the world of one's logits differ from the "
+                         f"plain engine's by {err1}")
+                del placed, lg1
+                dist.destroy_process_group()
+                gc.collect()
+                torch.cuda.empty_cache()
+            del want
+            gc.collect()
+
+            child, wall = mesh_ranks(root, wd, arch, ckpt)
+            for r, c in child.items():
+                err = c.get("max_abs_err_agreed", c["max_abs_err"])
+                if not (err is not None and err <= tol):
+                    fail(f"{arch}: mesh rank {r}'s logits differ from the "
+                         f"plain engine's by {err} (tolerance {tol}; {c})")
+                if c.get("agreed_share", 1.0) < MESH_MIN_AGREED:
+                    fail(f"{arch}: mesh rank {r}'s routings agreed with the "
+                         f"plain run's on {c['agreed_share']} of the pairs")
+                if ckpt != "-" and not c["restore_equal"]:
+                    fail(f"{arch}: rank {r}'s restored blocks differ from "
+                         f"its drawn blocks")
+            rec["four_ranks"] = {"mesh": [1, MESH_RANKS], "wall_s": wall,
+                                 "by_rank": child}
+            secs[arch] = time.perf_counter() - t_arch
+            print(json.dumps({"mesh_arch": arch, **rec}), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = dict(secs, phase=time.perf_counter() - t_phase)
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the mesh path launched EDM kernels: {launches}")
+    return out, launches
+
 
 def bench_resume_row(torch, EDM):
     """The reference bench's journal row (``benchmarks/bench_ccm.py``,
@@ -3923,6 +4311,12 @@ def main() -> None:
     print(smi)
     print(json.dumps({"train_path": train_out}))
 
+    # ------------------------------------------------ 14. LM mesh path
+    mesh_out, mesh_launches = run_mesh_path(torch, np, dev, root,
+                                            reset_counts, counts)
+    print(smi)
+    print(json.dumps({"mesh_path": mesh_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -3934,6 +4328,7 @@ def main() -> None:
         r["sharded_launches"] = sharded_launches[r["name"]]
         r["lm_launches"] = lm_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
+        r["mesh_launches"] = mesh_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

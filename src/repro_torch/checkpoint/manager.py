@@ -16,6 +16,14 @@ the type, dtype and device of the matching leaf of ``like``. An
 ``nn.Module`` (a model's parameters) is saved as the dict of its named
 parameters, and ``restore`` writes them back into the module of ``like``
 in place and returns that module.
+
+Elastic restore: ``restore(like, shardings=)`` places each stored, whole
+leaf onto a mesh (``shardings``: a tree matching ``like`` of
+``launch.sharding.NamedSharding``, None for a leaf left whole), every
+rank keeping its block; a module's parameters become those DTensors. A
+module whose parameters are DTensors already (``models.carry.
+place_params``) takes each rank's block of the stored leaf in place.
+Saving a DTensor stores it whole.
 """
 
 from __future__ import annotations
@@ -28,11 +36,19 @@ import numpy as np
 import torch
 
 
-def _flatten(tree) -> tuple[list, str]:
-    """(leaves in a fixed order, a string of the tree's structure)."""
+def _is_sharding(t) -> bool:
+    return t is None or hasattr(t, "placements")
+
+
+def _flatten(tree, keep=None) -> tuple[list, str]:
+    """(leaves in a fixed order, a string of the tree's structure); a node
+    that ``keep`` accepts is a leaf."""
     leaves: list = []
 
     def walk(t) -> str:
+        if keep is not None and keep(t):
+            leaves.append(t)
+            return "*"
         if isinstance(t, torch.nn.Module):
             t = dict(t.named_parameters())
         if isinstance(t, dict):
@@ -48,6 +64,8 @@ def _flatten(tree) -> tuple[list, str]:
 
 
 def _unflatten(like, leaves):
+    from repro_torch.models import meshctx
+
     it = iter(leaves)
 
     def build(t):
@@ -55,7 +73,18 @@ def _unflatten(like, leaves):
             params = dict(t.named_parameters())
             with torch.no_grad():
                 for k in sorted(params):
-                    params[k].copy_(next(it))
+                    new = next(it)
+                    if meshctx.is_dtensor(new):
+                        owner, _, leaf = k.rpartition(".")
+                        mod = t.get_submodule(owner) if owner else t
+                        setattr(mod, leaf, torch.nn.Parameter(
+                            new, requires_grad=params[k].requires_grad))
+                    elif meshctx.is_dtensor(params[k]):
+                        p = params[k]
+                        p.to_local().copy_(meshctx.local_slice(
+                            new, p.device_mesh, p.placements))
+                    else:
+                        params[k].copy_(new)
             return t
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
@@ -68,12 +97,24 @@ def _unflatten(like, leaves):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        from repro_torch.models import meshctx
+
+        return meshctx.full(leaf.detach()).cpu().numpy()
     return np.asarray(leaf)
 
 
-def _like(arr: np.ndarray, ref):
-    """``arr`` as the type, dtype and device of the leaf ``ref``."""
+def _like(arr: np.ndarray, ref, sharding=None):
+    """``arr`` as the type, dtype and device of the leaf ``ref``; placed
+    on ``sharding``'s mesh when one is given."""
+    if sharding is not None:
+        from repro_torch.models import meshctx
+
+        mesh = sharding.mesh
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+        dtype = ref.dtype if isinstance(ref, torch.Tensor) else None
+        t = torch.as_tensor(arr).to(device=dev, dtype=dtype)
+        return meshctx.place(t, mesh, sharding.placements)
     if isinstance(ref, torch.Tensor):
         return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
     return np.asarray(arr, dtype=ref.dtype)
@@ -135,14 +176,23 @@ class CheckpointManager:
 
     # ----------------------------------------------------------- restore
 
-    def restore(self, like, *, step: int | None = None):
+    def restore(self, like, *, step: int | None = None, shardings=None):
         """Restore into the structure of ``like`` (a tree of arrays or
-        tensors; each leaf comes back as its ``like`` leaf's type)."""
+        tensors; each leaf comes back as its ``like`` leaf's type).
+        ``shardings``: a tree matching ``like`` of ``NamedSharding``s (or
+        None leaves) for elastic placement onto a mesh."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self._step_dir(step)
-        leaves, _ = _flatten(like)
+        leaves, treedef = _flatten(like)
+        if shardings is None:
+            shard_leaves = [None] * len(leaves)
+        else:
+            shard_leaves, shard_def = _flatten(shardings, keep=_is_sharding)
+            if shard_def != treedef:
+                raise ValueError("shardings do not match the structure of "
+                                 "the restore target")
         try:
             with open(os.path.join(d, "manifest.json")) as f:
                 manifest = json.load(f)
@@ -160,7 +210,7 @@ class CheckpointManager:
                 f"{len(manifest.get('leaves', ()))} leaf records for "
                 f"{manifest['n_leaves']} leaves")
         out = []
-        for i, ref in enumerate(leaves):
+        for i, (ref, shd) in enumerate(zip(leaves, shard_leaves)):
             path = os.path.join(d, f"leaf_{i:05d}.npy")
             try:
                 arr = np.load(path)
@@ -185,5 +235,5 @@ class CheckpointManager:
                 raise ValueError(
                     f"leaf {i}: checkpoint shape {arr.shape} != "
                     f"{tuple(ref.shape)}")
-            out.append(_like(arr, ref))
+            out.append(_like(arr, ref, shd))
         return _unflatten(like, out)

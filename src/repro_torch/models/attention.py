@@ -16,8 +16,15 @@ where the reference casts it.
 
 MLA (Multi-head Latent Attention) caches only the latent + shared rope
 key; decode uses the *absorbed* form (W_uk folded into the query, W_uv
-deferred past the probability average). Sequence-parallel decode
-(``gqa_decode_seqpar``) needs a mesh and is ROADMAP item 11c.
+deferred past the probability average).
+
+On a mesh (``meshctx``) a decode cache's sequence axis is sharded over
+"model": ``gqa_decode`` and ``mla_decode`` write the new row on its owning
+rank and all-gather the sequence for the attention (the reference's GSPMD
+program re-gathers the cache the same way), while ``gqa_decode_seqpar``
+is the reference's shard_map island: each rank attends over its own
+positions and one max and two sums (in one all-reduce) over "model"
+recombine the softmax.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import abstract, apply_rope, dense, dense_init
+from repro_torch.models import meshctx
+from repro_torch.models.layers import (abstract, apply_rope, dense,
+                                      dense_init, dense_many)
 
 NEG_INF = -1e30
 
@@ -57,9 +66,10 @@ def _heads(cfg, p, x, positions):
     B, S, _ = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = Hq // Hkv
-    q = dense(p["wq"], x).reshape(B, S, Hq, dh)
-    k = dense(p["wk"], x).reshape(B, S, Hkv, dh)
-    v = dense(p["wv"], x).reshape(B, S, Hkv, dh)
+    q, k, v = dense_many([p["wq"], p["wk"], p["wv"]], x)
+    q = q.reshape(B, S, Hq, dh)
+    k = k.reshape(B, S, Hkv, dh)
+    v = v.reshape(B, S, Hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.reshape(B, S, Hkv, G, dh), k, v
@@ -174,9 +184,9 @@ def gqa_decode(p, cfg, x, cache, pos: int):
     S_max = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _heads(cfg, p, x, positions)
-    ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
+    meshctx.cache_write_row(cache["k"], pos, k[:, 0])
+    meshctx.cache_write_row(cache["v"], pos, v[:, 0])
+    ck, cv = meshctx.cache_read_many([cache["k"], cache["v"]])
     mask = (torch.arange(S_max, device=x.device) <= pos)[None, :]
     out = _sdpa(q, ck, cv, mask, 1.0 / math.sqrt(dh))
     out = dense(p["wo"], out.reshape(B, 1, -1).to(x.dtype))
@@ -205,10 +215,11 @@ def mla_init(rng, cfg, dtype):
     }
 
 
-def _mla_q(p, cfg, x, positions):
+def _mla_q(p, cfg, x, positions, q=None):
+    """(q_nope, q_rope) of x, or of its query projection ``q``."""
     B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = dense(p["wq"], x).reshape(B, S, H, dn + dr)
+    q = (dense(p["wq"], x) if q is None else q).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -247,36 +258,62 @@ def mla_full(p, cfg, x, positions, *, return_cache=False):
     return out
 
 
+def _latent_block(w):
+    """(this rank's rows of a latent-side weight placed with r over
+    "model", their offset in r), or None when it is not so placed."""
+    if not (meshctx.is_dtensor(w) and meshctx.sharded_dims(w).get("model")
+            == 0):
+        return None
+    local = meshctx.gather(w, tuple(
+        a for a in w.device_mesh.mesh_dim_names if a != "model"))
+    return local, meshctx.coordinate("model", w.device_mesh) * local.shape[0]
+
+
 def mla_decode(p, cfg, x, cache, pos: int):
     """Absorbed-form decode: scores/values live in the r-dim latent space.
-    The cache's row ``pos`` is written in place."""
+    The cache's row ``pos`` is written in place. With W_uk and W_uv placed
+    with r over "model", each rank contracts its block of r: the latent
+    scores' and the output's partial sums are all-reduced (kilobytes, where
+    gathering the two weights would move megabytes a layer)."""
     B, _, _ = x.shape
-    H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                        cfg.v_head_dim, cfg.kv_lora_rank)
+    H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
     S_max = cache["c_kv"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)  # (B,1,H,dn),(B,1,H,dr)
-    c_new = dense(p["w_dkv"], x)  # (B, 1, r)
-    kr_new = apply_rope(dense(p["w_kr"], x)[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+    q, c_new, kr = dense_many([p["wq"], p["w_dkv"], p["w_kr"]], x)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, q)  # (B,1,H,dn),(B,1,H,dr)
+    kr_new = apply_rope(kr[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]  # c_new: (B, 1, r)
+    meshctx.cache_write_row(cache["c_kv"], pos, c_new[:, 0])
+    meshctx.cache_write_row(cache["k_rope"], pos, kr_new[:, 0])
+    c_kv, k_rope = meshctx.cache_read_many([cache["c_kv"], cache["k_rope"]])
+    w_uk, w_uv = p["w_uk"]["w"], p["w_uv"]["w"]
+    blocks = (_latent_block(w_uk), _latent_block(w_uv))
+    mesh = None
+    if None not in blocks and blocks[0][1] == blocks[1][1]:
+        (w_uk, lo), (w_uv, _) = blocks
+        mesh = p["w_uk"]["w"].device_mesh
+        c_kv = c_kv[..., lo:lo + w_uk.shape[0]]
+    else:
+        w_uk, w_uv = meshctx.full(w_uk), meshctx.full(w_uv)
+    r = w_uk.shape[0]
     # absorb W_uk into the query: q̃ (B,1,H,r)
-    w_uk = p["w_uk"]["w"].reshape(r, H, dn)
-    q_lat = torch.einsum("bqhd,rhd->bqhr", *_promote(q_nope, w_uk))
-    s = (
-        torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c_kv.float())
-        + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
-    ) / math.sqrt(dn + dr)
+    q_lat = torch.einsum("bqhd,rhd->bqhr",
+                         *_promote(q_nope, w_uk.reshape(r, H, dn)))
+    s = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c_kv.float())
+    if mesh is not None:
+        s = meshctx.all_reduce(s, "model", mesh=mesh)
+    s = (s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+         ) / math.sqrt(dn + dr)
     mask = (torch.arange(S_max, device=x.device) <= pos)[None, :]
     s = torch.where(mask, s, NEG_INF)
     a = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhqk,bkr->bqhr", a, c_kv.float())
-    w_uv = p["w_uv"]["w"].reshape(r, H, dv)
     out = torch.einsum("bqhr,rhd->bqhd",
-                       *_promote(o_lat, w_uv)).reshape(B, 1, H * dv)
-    out = dense(p["wo"], out.to(x.dtype))
+                       *_promote(o_lat, w_uv.reshape(r, H, dv)))
+    if mesh is not None:
+        out = meshctx.all_reduce(out, "model", mesh=mesh)
+    out = dense(p["wo"], out.reshape(B, 1, H * dv).to(x.dtype))
     return out, cache
 
 
@@ -285,3 +322,58 @@ def mla_cache_shape(cfg, batch, s_max, dtype):
         "c_kv": abstract((batch, s_max, cfg.kv_lora_rank), dtype),
         "k_rope": abstract((batch, s_max, cfg.qk_rope_dim), dtype),
     }
+
+
+# ------------------------------------------- sequence-parallel decode
+
+
+def gqa_decode_seqpar(p, cfg, x, cache, pos: int):
+    """Decode attention with the KV cache's sequence axis sharded over the
+    "model" mesh axis (the reference's fully manual shard_map island, with
+    its flash-style combine).
+
+    Each model rank owns S_max/n cache positions: the new KV row is written
+    only by the owning rank, every rank computes a partial (m, l, o) over
+    its local positions, and the exact softmax recombines with one max and
+    two sums over "model" of (B, H, G[, d]), the sums joined in one
+    all-reduce. q, k and v enter replicated
+    over "model" (``dense`` gathers them), x and the cache hold the rank's
+    batch rows. Falls back to ``gqa_decode`` when n does not divide S_max.
+    """
+    mesh = meshctx.get_mesh()
+    n_model = meshctx.axis_len("model", mesh)
+    S_max = cache["k"].shape[1]
+    if S_max % n_model:
+        return gqa_decode(p, cfg, x, cache, pos)
+    B, _, D = x.shape
+    Hq, dh = cfg.n_heads, cfg.d_head
+    S_loc = S_max // n_model
+    sid = meshctx.coordinate("model", mesh)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _heads(cfg, p, x, positions)  # (B,1,Hkv,G,dh),(B,1,Hkv,dh)×2
+    scale = 1.0 / math.sqrt(dh)
+    meshctx.cache_write_row(cache["k"], pos, k[:, 0])
+    meshctx.cache_write_row(cache["v"], pos, v[:, 0])
+    ck, cv = (c.to_local() if meshctx.is_dtensor(c) else c
+              for c in (cache["k"], cache["v"]))
+    if ck.shape[1] != S_loc:  # a cache not sharded over "model"
+        ck = meshctx.block(ck, "model", 1, mesh)
+        cv = meshctx.block(cv, "model", 1, mesh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), ck.float()) * scale
+    gidx = sid * S_loc + torch.arange(S_loc, device=x.device)
+    s = torch.where(gidx <= pos, s, NEG_INF)
+    m = s.amax(-1)  # (B,H,G,1)
+    pexp = torch.exp(s - m[..., None])
+    l = pexp.sum(-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", pexp, cv.float())
+    m_g = meshctx.all_reduce(m.clone(), "model", "max", mesh)
+    corr = torch.exp(m - m_g)
+    # the two sums in one all-reduce: l beside o's last dim
+    lo = meshctx.all_reduce(torch.cat([o * corr[..., None],
+                                       (l * corr)[..., None]], -1),
+                            "model", mesh=mesh)
+    o_g, l_g = lo[..., :-1], lo[..., -1]
+    out = o_g / torch.clamp_min(l_g, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq * dh)
+    out = dense(p["wo"], out.to(x.dtype))
+    return out, cache

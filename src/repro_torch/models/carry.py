@@ -6,6 +6,10 @@ parameter module: under ``cfg.scan_layers`` the leading (n_units,) axis of
 ``units`` is unstacked into ``units.<u>``; a list of units maps one to
 one. A cache tree (``init_cache``, ``decode_step``) keeps the reference's
 layout in the port, so it is only checked and moved to the device.
+
+``place_params`` puts a parameter tree on a mesh by
+``launch.sharding.param_spec``: a carried module is cut leaf by leaf, and
+a generated one is drawn leaf by leaf, each rank keeping its block.
 """
 
 from __future__ import annotations
@@ -96,3 +100,77 @@ def cache_from_numpy(cfg, tree, *, device):
             node = node[k]
         node[path[-1]] = _tensor(leaf, path, want[path], device)
     return out
+
+
+def place_params(cfg, mesh, params=None, *, generator=None, device=None):
+    """The parameter module of ``cfg`` with every leaf a DTensor on
+    ``mesh``, placed by ``param_spec``.
+
+    ``params``: a whole module (e.g. ``params_from_numpy``), each leaf cut
+    to this rank's block. Without it the weights are drawn as
+    ``init_params(cfg, device=, generator=)`` draws them (a generator
+    seeded 0 on the mesh's device when None), one leaf at a time: each
+    whole leaf is made, its block kept and the rest freed, so no rank
+    holds the whole model and every block is bit-equal to that slice of
+    the world of one's weights.
+    """
+    from repro_torch.launch.sharding import param_spec, to_placements
+    from repro_torch.models import meshctx
+    from repro_torch.models.layers import Params
+
+    def placed(name, t):
+        pl = to_placements(mesh, param_spec(name, t.shape, cfg, mesh))
+        return meshctx.place(t.detach(), mesh, pl)
+
+    if params is not None:
+        tree: dict = {}
+        for name, t in params.named_parameters():
+            node = tree
+            *path, leaf = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = placed(name, t)
+        return Params(_lists(tree))
+
+    # The draw order's names, from a pass on the meta device.
+    drawn: list = []
+    meta = tf.param_tree(cfg, tf.init_rng("meta", keep=lambda t: (
+        drawn.append(t), t)[1]))
+    order = {id(t): i for i, t in enumerate(drawn)}
+    names = [None] * len(drawn)
+    for path, t in flatten_tree(meta):
+        if id(t) in order:
+            names[order[id(t)]] = ".".join(map(str, path))
+    kept = iter(range(len(names)))
+
+    def keep(t):
+        return placed(names[next(kept)], t)
+
+    dev = device if device is not None else mesh.device_type
+    tree = tf.param_tree(cfg, tf.init_rng(dev, generator, keep))
+    return Params(_lists(_place_rest(tree, placed)))
+
+
+def _place_rest(tree, placed, prefix=()):
+    """Place the leaves not drawn through ``keep`` (zeros, ones, computed
+    vectors); drawn leaves are DTensors already."""
+    from repro_torch.models import meshctx
+
+    if isinstance(tree, dict):
+        return {k: _place_rest(v, placed, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_place_rest(v, placed, prefix + (str(i),))
+                for i, v in enumerate(tree)]
+    if meshctx.is_dtensor(tree):
+        return tree
+    return placed(".".join(prefix), tree)
+
+
+def _lists(tree):
+    """Nested dicts keyed by unit index ("0", "1", ...) as lists."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(k.isdigit() for k in tree):
+        return [_lists(tree[str(i)]) for i in range(len(tree))]
+    return {k: _lists(v) for k, v in tree.items()}

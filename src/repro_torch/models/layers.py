@@ -12,20 +12,26 @@ allocate nothing and draw nothing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import meshctx
+
 
 @dataclasses.dataclass(frozen=True)
 class Init:
     """Where initial parameters are made: ``device``, and the generator
-    every draw takes in turn (None on the meta device)."""
+    every draw takes in turn (None on the meta device). ``keep``, when
+    given, receives each drawn leaf and returns what the tree holds
+    instead (``carry.place_params`` keeps a rank's shard)."""
 
     device: torch.device
     generator: torch.Generator | None
+    keep: object = None
 
     @property
     def abstract(self) -> bool:
@@ -67,11 +73,13 @@ def _init(rng: Init, shape, scale, dtype):
     cast to ``dtype`` (the reference's ``jax.random.truncated_normal``)."""
     dtype = torch_dtype(dtype)
     if rng.abstract:
-        return torch.empty(shape, dtype=dtype, device=rng.device)
-    t = torch.empty(shape, dtype=torch.float32, device=rng.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                generator=rng.generator)
-    return t.mul_(scale).to(dtype)
+        t = torch.empty(shape, dtype=dtype, device=rng.device)
+    else:
+        t = torch.empty(shape, dtype=torch.float32, device=rng.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=rng.generator)
+        t = t.mul_(scale).to(dtype)
+    return rng.keep(t) if rng.keep is not None else t
 
 
 def abstract(shape, dtype) -> torch.Tensor:
@@ -96,12 +104,68 @@ def dense_init(rng: Init, d_in, d_out, dtype, *, bias=False, scale=None):
     return p
 
 
-def dense(p, x):
+def dense(p, x, *, gather_out=True, x_sharded=False):
     """``x @ w`` with the reference's (d_in, d_out) layout, the weight cast
-    to ``x.dtype`` at use."""
-    y = x @ p["w"].to(x.dtype)
+    to ``x.dtype`` at use.
+
+    A weight placed on a mesh (a DTensor) runs on its local shard: its
+    data-parallel (FSDP) dims are all-gathered; sharded over "model" on
+    d_out (column-parallel) the local columns' output is all-gathered over
+    "model" (kept local with ``gather_out=False``); sharded on d_in
+    (row-parallel) the local rows of ``x`` (or ``x`` itself, already those
+    rows, with ``x_sharded``) give partial sums all-reduced over "model".
+    """
+    w = p["w"]
+    if meshctx.is_dtensor(w):
+        return _dense_placed(p, x, gather_out, x_sharded)
+    y = x @ w.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
+    return y
+
+
+def dense_many(ps, x) -> list:
+    """``dense`` of several weights on one input. Placed column-parallel
+    (d_out over "model") they share one all-gather of their local columns
+    (each rank's block of every output, then split), not one each."""
+    ws = [p["w"] for p in ps]
+    if not (all(meshctx.is_dtensor(w) and _model_dim(w) == 1 for w in ws)
+            and meshctx.axis_len("model", ws[0].device_mesh) > 1):
+        return [dense(p, x) for p in ps]
+    mesh = ws[0].device_mesh
+    locs = [dense(p, x, gather_out=False) for p in ps]
+    widths = [t.shape[-1] for t in locs]
+    g = meshctx.all_gather(torch.cat(locs, -1), "model", -1, mesh)
+    g = g.reshape(*g.shape[:-1], -1, sum(widths))
+    return [o.reshape(*o.shape[:-2], -1)
+            for o in torch.split(g, widths, dim=-1)]
+
+
+def _model_dim(w):
+    """The tensor dim a placed weight shards over "model", or None."""
+    return meshctx.sharded_dims(w).get("model")
+
+
+def _dense_placed(p, x, gather_out, x_sharded):
+    w = p["w"]
+    mesh = w.device_mesh
+    dim = _model_dim(w)
+    fsdp = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    wl = meshctx.gather(w, fsdp).to(x.dtype)
+    b = meshctx.gather(p["b"], fsdp).to(x.dtype) if "b" in p else None
+    if dim == 1:
+        y = x @ wl
+        if b is not None:
+            y = y + (b if b.shape[-1] == y.shape[-1] else meshctx.block(
+                b, "model", 0, mesh))
+        return meshctx.all_gather(y, "model", -1, mesh) if gather_out else y
+    if dim == 0:
+        xs = x if x_sharded else meshctx.block(x, "model", x.ndim - 1, mesh)
+        y = meshctx.all_reduce(xs @ wl, "model", mesh=mesh)
+    else:
+        y = x @ wl
+    if b is not None:
+        y = y + meshctx.gather(b).to(x.dtype)
     return y
 
 
@@ -113,7 +177,7 @@ def rmsnorm(p, x, eps=1e-5):
     """Normalized in float32, cast back, then scaled by ``g`` in x.dtype."""
     x32 = x.float()
     rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
-    return (x32 * rms).to(x.dtype) * p["g"].to(x.dtype)
+    return (x32 * rms).to(x.dtype) * meshctx.full(p["g"]).to(x.dtype)
 
 
 def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -155,16 +219,25 @@ def mlp_init(rng: Init, d_model, d_ff, kind, dtype):
 
 
 def mlp(p, x, kind):
+    """The MLP. Placed on a mesh with its hidden dim over "model" (the
+    up-projections column-parallel, the down-projection row-parallel), the
+    hidden activations stay local and one all-reduce combines the output
+    (Megatron's MLP)."""
+    local = (meshctx.is_dtensor(p["w_down"]["w"])
+             and _model_dim(p["w_down"]["w"]) == 0
+             and all(_model_dim(p[n]["w"]) == 1
+                     for n in ("w_gate", "w_up") if n in p))
+    up = functools.partial(dense, gather_out=not local)
     if kind == "swiglu":
-        h = F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x)
+        h = F.silu(up(p["w_gate"], x)) * up(p["w_up"], x)
     elif kind == "relu2":
-        h = torch.square(F.relu(dense(p["w_up"], x)))
+        h = torch.square(F.relu(up(p["w_up"], x)))
     elif kind == "gelu":
         # jax.nn.gelu's default is the tanh approximation.
-        h = F.gelu(dense(p["w_up"], x), approximate="tanh")
+        h = F.gelu(up(p["w_up"], x), approximate="tanh")
     else:
         raise ValueError(kind)
-    return dense(p["w_down"], h)
+    return dense(p["w_down"], h, x_sharded=local)
 
 
 def embedding_init(rng: Init, vocab, d_model, dtype, scale: float = 1.0):
@@ -180,6 +253,8 @@ def embed(p, tokens, dtype=None):
     bits (a cast is elementwise) without copying a (vocab, d_model) table
     every step."""
     table = p["table"]
+    if meshctx.is_dtensor(table):
+        return _embed_placed(table, tokens, dtype)
     if dtype is None or torch_dtype(dtype) == table.dtype:
         return table[tokens]
     if torch.is_grad_enabled() and table.requires_grad:
@@ -187,6 +262,33 @@ def embed(p, tokens, dtype=None):
     return table[tokens].to(torch_dtype(dtype))
 
 
+def _embed_placed(table, tokens, dtype):
+    """A vocab-parallel lookup: each rank gathers the rows its shard holds
+    (zeros for the others) and an all-reduce over "model" sums them, which
+    gives every row exactly."""
+    tl = meshctx.gather(table, tuple(
+        a for a in table.device_mesh.mesh_dim_names if a != "model"))
+    if _model_dim(table) == 0:
+        lo = meshctx.coordinate("model", table.device_mesh) * tl.shape[0]
+        hit = (tokens >= lo) & (tokens < lo + tl.shape[0])
+        rows = tl[(tokens - lo).clamp(0, tl.shape[0] - 1)]
+        rows = meshctx.all_reduce(rows * hit[..., None].to(rows.dtype),
+                                  "model", mesh=table.device_mesh)
+    else:
+        rows = tl[tokens]
+    return rows if dtype is None else rows.to(torch_dtype(dtype))
+
+
 def unembed(p, x):
-    """Project to vocab logits in float32 (loss numerics)."""
-    return x.float() @ p["table"].T.float()
+    """Project to vocab logits in float32 (loss numerics). A table placed
+    with its vocab over "model" gives each rank its vocab columns, then an
+    all-gather over "model"."""
+    table = p["table"]
+    if meshctx.is_dtensor(table):
+        tl = meshctx.gather(table, tuple(
+            a for a in table.device_mesh.mesh_dim_names if a != "model"))
+        y = x.float() @ tl.T.float()
+        if _model_dim(table) == 0:
+            y = meshctx.all_gather(y, "model", -1, table.device_mesh)
+        return y
+    return x.float() @ table.T.float()

@@ -8,9 +8,18 @@ position in its expert's run; rows at positions ≥ capacity drop (GShard
 semantics, capacity_factor 1.25) and read zero back. Shared experts
 (DeepSeek) are an always-on fused MLP.
 
-Only the reference's no-mesh branch is ported (E_loc = E); the expert-
-parallel branch is ROADMAP item 11c. ``index_add_`` on CUDA sums a token's
-expert outputs in no fixed order, so the card is held to a tolerance.
+Expert parallelism: with a mesh whose "model" axis (> 1) divides E, the
+layer is the reference's fully manual shard_map island on local tensors.
+Routing runs per data-parallel shard over its local tokens (the rank's
+batch rows: capacity per dp group, so with dp > 1 the result differs from
+the no-mesh path by design), each model rank owns E/n experts (its block
+of the placed expert banks) and takes its rows by shifting the sorted
+expert ids into local range (rows out of range drop), the partial outputs
+are summed over "model" by one all-reduce, and ``aux`` is averaged over
+the dp axes. Sort, bincount and the scatters run on local tensors: no
+DTensor strategy is asked for them. Without a mesh the same block runs
+with E_loc = E. ``index_add_`` on CUDA sums a token's expert outputs in
+no fixed order, so the card is held to a tolerance.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import meshctx
 from repro_torch.models.layers import _init, mlp, mlp_init
 from repro_torch.models.meshctx import constrain
 
@@ -82,27 +92,67 @@ def _expert_block(wg, wu, wd, xf, se_loc, st, pos, C):
     return back  # (T·k, D)
 
 
-def _moe_local(x, router, wg, wu, wd, *, k, E, cf):
+def _moe_local(x, router, wg, wu, wd, shard_id=0, *, k, E, cf, mesh=None,
+               dp_names=()):
+    """The body shared by the expert-parallel island (local shapes; the
+    bank holds E_loc experts from ``shard_id`` · E_loc) and the no-mesh
+    path."""
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
     se, st, pos, wts, counts, probs = _route(xf, router, k, E, cf)
     C = _capacity(T, k, E, cf)
-    gathered = _expert_block(wg, wu, wd, xf, se, st, pos, C)
+    E_loc = wg.shape[0]
+    gathered = _expert_block(wg, wu, wd, xf, se - shard_id * E_loc, st, pos,
+                             C)
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(
         0, st, wts.to(x.dtype) * gathered)
+    if E_loc != E:  # expert-parallel: combine partial outputs
+        y = meshctx.all_reduce(y, "model", mesh=mesh)
     aux = E * torch.sum((counts.float() / (T * k)) * probs.mean(0))
+    if dp_names:
+        n = 1
+        for a in dp_names:
+            n *= meshctx.axis_len(a, mesh)
+        aux = meshctx.all_reduce(aux.clone(), dp_names, mesh=mesh) / n
     return y.reshape(B, S, D), aux
 
 
 def moe_apply(p, cfg, x):
-    """x: (B, S, D) → (y (B, S, D), aux load-balance loss scalar)."""
+    """x: (B, S, D) → (y (B, S, D), aux load-balance loss scalar). On a
+    mesh ``x`` is the rank's batch rows (replicated over "model")."""
     m = cfg.moe
+    E = m.num_experts
     dtype = x.dtype
-    y, aux = _moe_local(x, p["router"], p["w_gate"].to(dtype),
-                        p["w_up"].to(dtype), p["w_down"].to(dtype),
-                        k=m.top_k, E=m.num_experts, cf=m.capacity_factor)
+    mesh = meshctx.get_mesh()
+    n_model = meshctx.axis_len("model", mesh)
+    kw = dict(k=m.top_k, E=E, cf=m.capacity_factor)
+    if mesh is not None and n_model > 1 and E % n_model == 0:
+        dp = tuple(a for a in meshctx.DP_AXES if a in mesh.mesh_dim_names)
+        # routing per dp group when the activations' batch is over dp
+        dp_names = dp if meshctx.batch_sharded() else ()
+        banks = [_expert_bank(p[n], mesh, dtype)
+                 for n in ("w_gate", "w_up", "w_down")]
+        y, aux = _moe_local(x, meshctx.full(p["router"]), *banks,
+                            meshctx.coordinate("model", mesh), mesh=mesh,
+                            dp_names=dp_names, **kw)
+    else:  # routing over the whole batch, as without a mesh
+        y, aux = _moe_local(meshctx.batch_all(x), meshctx.full(p["router"]),
+                            *(meshctx.full(p[n]).to(dtype)
+                              for n in ("w_gate", "w_up", "w_down")), **kw)
+        y = meshctx.batch_rows(y)
     y = constrain(y, "dp", None, None)
     if m.num_shared:
         y = y + mlp(p["shared"], x, "swiglu")
     return y, aux
+
+
+def _expert_bank(w, mesh, dtype):
+    """This model rank's E/n experts of a bank, whole in their other dims
+    (a placed bank's FSDP dims all-gathered; a whole one cut)."""
+    if meshctx.is_dtensor(w) and meshctx.sharded_dims(w).get("model") == 0:
+        local = meshctx.gather(w, tuple(
+            a for a in w.device_mesh.mesh_dim_names if a != "model"))
+    else:
+        local = meshctx.block(meshctx.full(w), "model", 0, mesh)
+    return local.to(dtype)

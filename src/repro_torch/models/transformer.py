@@ -18,6 +18,17 @@ Entry points:
   * ``prefill`` — forward returning the attention layers' KV caches padded
     to S_max.
   * ``init_cache`` / ``decode_step`` — one token against the cache.
+
+On a mesh (``meshctx.set_mesh``; parameters placed by
+``carry.place_params``, the cache by ``init_cache(..., mesh=)``) the
+entry points take whole inputs and return whole logits on every rank, as
+the reference returns replicated results. Between units the activations
+are DTensors (batch over the data-parallel axes, ``constrain`` at each
+unit boundary); a unit's layers run on the rank's local rows. Decode
+attention dispatches to ``gqa_decode_seqpar`` when
+``meshctx.seqpar_decode()`` is on. A recurrent layer (Mamba, xLSTM) on a
+mesh gathers its mixer's parameters and its state whole for the step and
+keeps its own block of the new state.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.edm.dataset import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import meshctx
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
@@ -91,12 +103,23 @@ def init_params(cfg, *, device="cuda", generator=None) -> Params:
     reference's: ``embed`` (token-input archs and VLMs), ``units``,
     ``final_norm``, and ``lm_head`` unless the embeddings are tied. On the
     ``meta`` device it allocates and draws nothing."""
+    return Params(param_tree(cfg, init_rng(device, generator)))
+
+
+def init_rng(device, generator=None, keep=None) -> Init:
+    """The ``Init`` of ``init_params``: a seeded generator on the device
+    when none is given, none on the meta device."""
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(dev, "init_params")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-    rng = Init(dev, None if dev.type == "meta" else generator)
+    return Init(dev, None if dev.type == "meta" else generator, keep)
+
+
+def param_tree(cfg, rng: Init) -> dict:
+    """The parameter tree of ``cfg`` as nested dicts of tensors, drawn in
+    ``init_params``' order from ``rng``."""
     dtype = cfg.param_dtype
     tree = {}
     if not cfg.embed_inputs or cfg.family == "vlm":
@@ -108,7 +131,7 @@ def init_params(cfg, *, device="cuda", generator=None) -> Params:
         # 1/√d head init keeps init CE ≈ log V (logits O(1))
         tree["lm_head"] = embedding_init(rng, cfg.vocab_size, cfg.d_model,
                                          dtype, scale=cfg.d_model ** -0.5)
-    return Params(tree)
+    return tree
 
 
 def abstract_params(cfg) -> Params:
@@ -117,6 +140,16 @@ def abstract_params(cfg) -> Params:
 
 
 # --------------------------------------------------------------- forward
+
+
+def _mixer(kind, p):
+    """A layer's mixer parameters: a recurrent mixer on a mesh gathered
+    whole (its scans read its parameters directly)."""
+    mix = p["mix"]
+    if (kind in ATTN_KINDS or not isinstance(mix, torch.nn.Module)
+            or not meshctx.is_dtensor(next(mix.parameters()))):
+        return mix
+    return meshctx.full_tree(mix)
 
 
 def _apply_layer_train(kind, p, x, positions, *, cfg, mode):
@@ -137,11 +170,11 @@ def _apply_layer_train(kind, p, x, positions, *, cfg, mode):
             else:
                 y = attn.gqa_full(p["mix"], cfg, h, positions)
     elif kind in ("mamba", "mamba_moe"):
-        y = mb.mamba_train(p["mix"], cfg, h)
+        y = mb.mamba_train(_mixer(kind, p), cfg, h)
     elif kind == "mlstm":
-        return x + xl.mlstm_train(p["mix"], cfg, h), aux, None
+        return x + xl.mlstm_train(_mixer(kind, p), cfg, h), aux, None
     elif kind == "slstm":
-        return x + xl.slstm_train(p["mix"], cfg, h), aux, None
+        return x + xl.slstm_train(_mixer(kind, p), cfg, h), aux, None
     x = x + y
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if kind.endswith("_moe"):
@@ -154,7 +187,9 @@ def _apply_layer_train(kind, p, x, positions, *, cfg, mode):
 def _unit_apply_train(uparams, cfg, x, positions, mode):
     aux_total = 0.0
     caches = {}
-    x = constrain(x, "dp", None, None)
+    x = constrain(x, "dp", None, None)  # pin batch over data (FSDP contract)
+    dt, x = x, meshctx.local(x)
+    positions = positions[:x.shape[0]]
     for i, kind in enumerate(cfg.pattern):
         layer = functools.partial(_apply_layer_train, kind, cfg=cfg,
                                   mode=mode)
@@ -166,7 +201,7 @@ def _unit_apply_train(uparams, cfg, x, positions, mode):
         aux_total = aux_total + aux
         if cache is not None:
             caches[f"l{i}"] = cache
-    return x, aux_total, caches
+    return meshctx.wrap_like(x, dt), aux_total, caches
 
 
 def _stack_forward(params, cfg, x, positions, mode):
@@ -183,7 +218,7 @@ def _stack_forward(params, cfg, x, positions, mode):
         caches = {name: {k: torch.stack([c[name][k] for c in caches])
                          for k in caches[0][name]}
                   for name in caches[0]}
-    return x, aux_total, caches
+    return meshctx.local(x), aux_total, caches
 
 
 def _inputs_to_h(params, cfg, batch):
@@ -194,6 +229,8 @@ def _inputs_to_h(params, cfg, batch):
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    if meshctx.get_mesh() is not None:
+        x = meshctx.activation(x)
     return x, positions
 
 
@@ -209,7 +246,7 @@ def forward_train(params, cfg, batch):
     (B, S, V) float32, MoE aux scalar)."""
     x, positions = _inputs_to_h(params, cfg, batch)
     x, aux, _ = _stack_forward(params, cfg, x, positions, mode="train")
-    return _head(params, cfg, x), aux
+    return meshctx.batch_all(_head(params, cfg, x)), aux
 
 
 def loss_fn(params, cfg, batch, *, aux_weight: float = 0.01,
@@ -240,10 +277,11 @@ def prefill(params, cfg, batch, *, s_max: int | None = None):
     """Forward pass that also returns the attention layers' caches (padded
     to s_max along the sequence axis): (last-position logits (B, 1, V),
     caches). Recurrent layers' states are not returned, as in the
-    reference."""
+    reference. On a mesh the caches are the rank's batch rows, whole in
+    the sequence (unplaced)."""
     x, positions = _inputs_to_h(params, cfg, batch)
     x, _, caches = _stack_forward(params, cfg, x, positions, mode="prefill")
-    logits = _head(params, cfg, x[:, -1:, :])
+    logits = meshctx.batch_all(_head(params, cfg, x[:, -1:, :]))
     S = positions.shape[1]
     s_max = s_max or S
     caches = _pad_attn_caches(caches, cfg, s_max,
@@ -271,11 +309,13 @@ def _pad_attn_caches(caches, cfg, s_max, *, axis):
 
 
 def init_cache(cfg, batch: int, s_max: int, dtype=None, abstract=False, *,
-               device="cuda"):
+               device="cuda", mesh=None):
     """The decode cache tree: ``{"l<i>": {...}}`` with a leading
     (n_units,) axis under ``cfg.scan_layers``, a list of per-unit trees
     otherwise; zeros (xLSTM stabilizers ``m`` at -1e30) on ``device`` (the
-    card by default), or meta tensors when ``abstract``."""
+    card by default), or meta tensors when ``abstract``. With ``mesh``
+    each leaf is a DTensor placed by ``launch.sharding.cache_specs``,
+    each rank allocating only its block."""
     dtype = dtype or cfg.dtype
     unit = {}
     for i, kind in enumerate(cfg.pattern):
@@ -304,9 +344,42 @@ def init_cache(cfg, batch: int, s_max: int, dtype=None, abstract=False, *,
         return {l: {k: make(k, sds, lead) for k, sds in leaves.items()}
                 for l, leaves in unit.items()}
 
+    if mesh is not None and not abstract:
+        return _placed_cache(init_cache(cfg, batch, s_max, dtype, True),
+                             mesh, dev)
     if cfg.scan_layers:
         return unit_tree((n,))
     return [unit_tree(()) for _ in range(n)]
+
+
+def _placed_cache(abstract_cache, mesh, dev):
+    """Zeros (``m`` at -1e30) placed by ``cache_specs``: each rank makes
+    only its block."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import cache_specs, to_placements
+
+    specs = cache_specs(None, mesh, abstract_cache)
+
+    def make(name, t, spec):
+        pl = to_placements(mesh, spec)
+        shape = list(t.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] //= mesh.size(i)
+        fill = xl.M_INIT if name == "m" else 0.0
+        local = torch.full(shape, fill, dtype=t.dtype, device=dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def walk(t, spec, name=""):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k], k) for k in t}
+        if isinstance(t, list):
+            return [walk(a, b, name) for a, b in zip(t, spec)]
+        return make(name, t, spec)
+
+    return walk(abstract_cache, specs)
 
 
 def _apply_layer_decode(kind, p, cfg, x, cache, pos):
@@ -314,18 +387,23 @@ def _apply_layer_decode(kind, p, cfg, x, cache, pos):
     ``cache`` in place."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ATTN_KINDS:
-        # seqpar_decode() is always False without a mesh (item 11c).
-        fn = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+        if cfg.attention == "mla":
+            fn = attn.mla_decode
+        elif meshctx.seqpar_decode():
+            fn = attn.gqa_decode_seqpar
+        else:
+            fn = attn.gqa_decode
         y, _ = fn(p["mix"], cfg, h, cache, pos)
     else:
+        state = {k: meshctx.cache_read(v) for k, v in cache.items()}
         if kind in ("mamba", "mamba_moe"):
-            y, new = mb.mamba_decode(p["mix"], cfg, h, cache)
+            y, new = mb.mamba_decode(_mixer(kind, p), cfg, h, state)
         elif kind == "mlstm":
-            y, new = xl.mlstm_decode(p["mix"], cfg, h, cache)
+            y, new = xl.mlstm_decode(_mixer(kind, p), cfg, h, state)
         else:
-            y, new = xl.slstm_decode(p["mix"], cfg, h, cache)
+            y, new = xl.slstm_decode(_mixer(kind, p), cfg, h, state)
         for k, v in new.items():
-            cache[k].copy_(v)
+            meshctx.cache_store(cache[k], v)
         if kind in ("mlstm", "slstm"):
             return x + y
     x = x + y
@@ -344,18 +422,25 @@ def decode_step(params, cfg, tokens, cache, pos: int):
     cache: tree from init_cache (or a prefill's attention caches in the
     same layout); pos: int write position. Writes the step's KV row and
     recurrent states INTO ``cache`` (in place) and returns
-    (logits (B, 1, V) float32, that same cache tree).
+    (logits (B, 1, V) float32, that same cache tree). On a mesh, the
+    whole batch's tokens go in and its whole logits come out on every
+    rank; the cache is placed (``init_cache(..., mesh=)``).
     """
     if isinstance(tokens, dict):
         x = tokens["embeds"].to(_dtype(cfg))
     else:
         x = embed(params["embed"], tokens, _dtype(cfg))
+    if meshctx.get_mesh() is not None:
+        x = meshctx.activation(x)
     for u, uparams in enumerate(params["units"]):
         # Unit u's slice of a stacked cache is a view: writes reach it.
         ucache = ({name: {k: v[u] for k, v in leaves.items()}
                    for name, leaves in cache.items()}
                   if cfg.scan_layers else cache[u])
+        x = constrain(x, "dp", None, None)
+        dt, x = x, meshctx.local(x)
         for i, kind in enumerate(cfg.pattern):
             x = _apply_layer_decode(kind, uparams[f"l{i}"], cfg, x,
                                     ucache[f"l{i}"], pos)
-    return _head(params, cfg, x), cache
+        x = meshctx.wrap_like(x, dt)
+    return meshctx.batch_all(_head(params, cfg, meshctx.local(x))), cache

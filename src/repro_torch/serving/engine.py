@@ -9,6 +9,11 @@ slot hits EOS or ``max_new``. Only each step's logits row crosses to the
 host; greedy is the host's argmax and temperature sampling the host's
 ``numpy.random.default_rng(seed).choice``, as the reference, so equal
 probabilities give equal tokens.
+
+On a mesh (``meshctx.set_mesh``, the model placed by
+``carry.place_params``) every rank calls ``generate`` with the same
+prompts: the cache is placed by ``cache_specs``, each step's logits come
+back whole on every rank, and every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.models import meshctx
 from repro_torch.models import transformer as tf
 
 
@@ -53,7 +59,8 @@ class ServeEngine:
         max_len = max(lens)
         if max_len + max_new > self.s_max:
             raise ValueError("s_max too small for prompt + max_new")
-        cache = tf.init_cache(cfg, B, self.s_max, device=self.device)
+        cache = tf.init_cache(cfg, B, self.s_max, device=self.device,
+                              mesh=meshctx.get_mesh())
         # Left-pad with the row's first token so all rows end at the same
         # position; padded prefix tokens are part of the replay but the
         # generated continuation starts from the true prompt ending.

@@ -62,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training.step, repro_torch.training.loop, "
             "repro_torch.training.carry, repro_torch.data.pipeline, "
             "repro_torch.distributed.compression, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a, smoke=s) for a in ARCHS for s in (0, 1)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
