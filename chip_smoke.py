@@ -224,6 +224,24 @@ phase passed; any failure exits nonzero. Phases:
    saved, restored by every rank onto (1, 4) (``restore(shardings=)``),
    bit-equal to its drawn blocks. The four ranks check code paths and
    collectives, not scaling: they share one card.
+15. LM train step on a mesh — ``make_train_step`` under
+   ``meshctx.use_mesh`` (the placed train state, the differentiable
+   collectives, the vocab-parallel loss, the placed 8-bit AdamW), none of
+   the EDM kernels (``mesh_train_launches`` 0 each). qwen1.5-4b as
+   configured (random weights from a generator seeded 0 on the card),
+   ``adamw8bit``, ``MESH_TRAIN_STEPS`` steps of one batch
+   (``TokenPipeline(vocab, 2, 2,048, seed 0)``, one microbatch): the
+   no-mesh step first (its metrics and sampled rows kept, its state
+   freed); (a) a world of one on NCCL, mesh (1, 1), held to it at phase
+   13's float32 bounds (``WORLD_OF_ONE_BOUNDS``); (b) four gloo ranks on
+   the card (``MESH_TRAIN_CHILD``), mesh (2, 2), one row a dp group, each
+   rank drawing its blocks leaf by leaf, held to (a) within
+   ``MESH_TRAIN_BOUNDS`` (bf16 over another summation order). Per run:
+   CUDA-event ms a step (per rank), collectives a step by kind (the remat
+   recompute's included) and the host's ms inside them, local and peak
+   bytes a rank, the step's FLOP bound; the phase's seconds. S is cut to
+   1,024 (and printed) if the four ranks' reckoned bytes pass
+   ``MESH_TRAIN_CAP``.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -333,6 +351,53 @@ MESH_RANK_NEW = 8           # new tokens of the four ranks' own generate (the
 # The checkpoint of phase 14 (d): these leaves of the world of one's
 # llama3-8b, restored onto the four ranks' mesh.
 MESH_CKPT_PREFIXES = ("units.0.", "final_norm.")
+
+# Phase 15, the train step on a mesh: qwen1.5-4b as configured, adamw8bit,
+# global batch MESH_TRAIN_B × MESH_TRAIN_S in one microbatch (one row a dp
+# group on (2, 2)), MESH_TRAIN_STEPS steps of each run; the four ranks'
+# mesh (2, 2) over ("data", "model"), every rank on cuda:0 (gloo).
+MESH_TRAIN_ARCH = "qwen1.5-4b"
+MESH_TRAIN_B, MESH_TRAIN_S = 2, 2048
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_CAP = 70e9       # the four ranks' reckoned total; S 1,024 above
+MESH_TRAIN_CHILD_TIMEOUT_S = 900
+# Sampled rows of these leaves after the first step (vocab rows of both
+# model blocks; the straddling MLP leaf; a bias and the final norm whole).
+MESH_TRAIN_LEAVES = ("embed.table", "lm_head.table",
+                     "units.20.l0.mlp.w_up.w", "units.20.l0.mix.wq.b",
+                     "final_norm.g")
+MESH_TRAIN_ROWS = 8
+# (a) the world of one against the no-mesh step (the same bf16 ops; the
+# loss takes the head on S − 1 positions and a sum over the global token
+# count): phase 13's float32 bounds (TRAIN_SMOKE_RTOL's comment) on the
+# metrics and the sampled blocks.
+# (b) four ranks against (a): bf16 activations summed in another order
+# (partial products over "model" rounded to bf16 before their sum, the
+# vocab-parallel cross-entropy). Adam's first step moves an element by
+# ≈ ±lr whatever |g| is, so a weight is off by at most 2·lr (+ the decay),
+# and only where the gradient's sign differs; the moments are 0.1·g and
+# 0.05·g², off by the gradients' bf16 noise (a gradient scaled by the
+# wrong factor shows in them and in grad_norm, not in the weights). The
+# bounds are about five times what the CPU proxy of this comparison shows
+# at the card's shapes but the width (``tools/mesh_train_proxy.py``: 22
+# layers, d_model 256, d_ff 768, vocab 1,024, bf16 over float32, S 2,048,
+# the rows of ``mesh_train_rows``; in float32 the same comparison is
+# within 1e-6: the differences are bf16 rounding): metrics ≤ 4.4e-5
+# relative, weights more than 0.1·lr apart 0.69 %, codes more than one
+# apart 5.2 % (a signed-sqrt code near zero moves by many), scales 4.7 %,
+# decoded 8-bit moments 5.3 % of their block's scale, float32 moments
+# 0.98 % of the leaf's largest.
+MESH_TRAIN_BOUNDS = {
+    "metric_rel": 5e-3,      # |Δ| / |(a)| of loss, ce, grad_norm, lr
+    "weight_over_lr": 2.1,   # max |Δw| / lr
+    "weight_moved_share": 5e-2,  # share of weights with |Δw| > 0.1·lr
+    "code": 254,             # max |Δ code|: recorded, bounded below
+    "code_share": 0.3,       # share of codes off by more than 1
+    "scale_rel": 0.25,       # max relative Δ of the 8-bit scales
+    "moment8_rel": 0.3,      # decoded 8-bit moments: max |Δ| / scale
+    "moment_rel": 0.1,       # float32 moments: max |Δ| / the leaf's max
+}
 
 # The smoke archs' train step on the card against the CPU port (float32,
 # TF32 off), one step from the same state, at the CPU tests' tolerances
@@ -613,6 +678,40 @@ meshctx.set_mesh(None)
 dist.barrier()
 dist.destroy_process_group()
 print(json.dumps({"mesh_child": rec}))
+"""
+
+
+# A rank of phase 15's four-rank world on the one card: gloo on a
+# FileStore under ``out``, every rank on cuda:0, mesh MESH_TRAIN_SHAPE.
+# Draws the placed train state leaf by leaf, takes MESH_TRAIN_STEPS steps
+# of the batch ``out``/batch.npz (sampling rows after the first), and
+# prints its record; rank 0 writes the sampled rows to ``out``.
+MESH_TRAIN_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, out, root = sys.argv[1:5]
+rank, world = int(rank), int(world)
+sys.path.insert(0, root)
+import chip_smoke as cs
+torch.set_num_threads(2)  # four ranks share the host's cores
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(
+    os.path.join(out, "store"), world), rank=rank, world_size=world)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import meshctx
+
+mesh = make_mesh(cs.MESH_TRAIN_SHAPE, ("data", "model"))
+with meshctx.use_mesh(mesh):
+    rec, rows = cs.mesh_train_run(torch, np, torch.device("cuda", 0),
+                                  os.path.join(out, "batch.npz"))
+if rank == 0:
+    np.savez(os.path.join(out, "rows.npz"), **rows)
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"mesh_train_child": rec}))
 """
 
 
@@ -3818,6 +3917,391 @@ def run_mesh_path(torch, np, dev, root, reset_counts, counts):
     return out, launches
 
 
+def mesh_train_config():
+    from repro_torch.configs import TrainConfig, get_config
+
+    return get_config(MESH_TRAIN_ARCH), TrainConfig(
+        optimizer="adamw8bit", warmup_steps=0, total_steps=MESH_TRAIN_STEPS)
+
+
+def mesh_train_rows(np, cfg, tokens):
+    """{leaf: its sampled rows (None: the whole leaf)}: vocab rows of
+    tokens the batch holds once, in each half of the vocabulary (both
+    "model" blocks of a table), random rows of the MLP leaf. (A frequent
+    token's embedding gradient is a bf16 sum of its rows, as the
+    reference's, whose rounding differs between summation orders by far
+    more than the rest: 18 % of the scale at S 2,048 in the CPU proxy.)"""
+    seen, count = np.unique(tokens, return_counts=True)
+    seen = seen[count == 1]
+    half = cfg.vocab_size // 2
+    vocab = np.concatenate([seen[seen < half][:MESH_TRAIN_ROWS // 2],
+                            seen[seen >= half][:MESH_TRAIN_ROWS // 2]])
+    rng = np.random.default_rng(0)
+    return {"embed.table": vocab, "lm_head.table": vocab,
+            "units.20.l0.mlp.w_up.w": np.sort(rng.choice(
+                cfg.d_model, MESH_TRAIN_ROWS, replace=False)),
+            "units.20.l0.mix.wq.b": None, "final_norm.g": None}
+
+
+def take_rows(torch, t, rows):
+    """Rows (of dim 0; all when None) of a leaf, placed or plain, as a host
+    float64 array on every rank: a placed leaf's ranks each fill the rows
+    they hold and one all-reduce over the dims its rows are cut on puts
+    them together (every rank of the mesh calls this)."""
+    from repro_torch.models import meshctx
+    from repro_torch.optim.adamw import _offset
+
+    t = t.detach()
+    if not meshctx.is_dtensor(t) or rows is None:
+        whole = meshctx.full(t)
+        got = whole if rows is None else whole[torch.as_tensor(
+            rows, device=whole.device)]
+        return got.double().cpu().numpy()
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    cut = tuple(names[i] for i, p in enumerate(t.placements)
+                if p.is_shard() and p.dim == 0)
+    local = meshctx.gather(t, tuple(a for a in names if a not in cut))
+    idx = torch.as_tensor(rows, device=local.device) - _offset(t, 0)
+    hit = (idx >= 0) & (idx < local.shape[0])
+    got = torch.zeros((len(rows),) + tuple(local.shape[1:]),
+                      dtype=torch.float32, device=local.device)
+    got[hit] = local[idx[hit]].float()
+    return meshctx.all_reduce_(got, cut, mesh=mesh).double().cpu().numpy()
+
+
+def sample_state(torch, state, rows):
+    """{"<leaf>/p", "<leaf>/m/q", …: sampled rows} of a train state."""
+    params = dict(state["params"].named_parameters())
+    out = {}
+    for name, r in rows.items():
+        out[f"{name}/p"] = take_rows(torch, params[name], r)
+        for k in ("m", "v"):
+            mv = state["opt"][k][name]
+            for j, t in (mv.items() if isinstance(mv, dict) else [("", mv)]):
+                out[f"{name}/{k}{'/' + j if j else ''}"] = take_rows(
+                    torch, t, r)
+    return out
+
+
+def local_bytes(tree) -> int:
+    """Bytes this rank holds of a (placed) tree."""
+    import torch
+
+    from repro_torch.models import meshctx
+
+    if isinstance(tree, torch.nn.Module):
+        return sum(local_bytes(p) for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(local_bytes(v) for v in tree.values())
+    t = meshctx.local(tree)
+    return t.numel() * t.element_size()
+
+
+def mesh_train_run(torch, np, dev, batch_path):
+    """The train state drawn from a generator seeded 0 on the card (placed
+    by ``state_specs`` when a mesh is set) and ``MESH_TRAIN_STEPS`` steps of
+    the batch at ``batch_path``: (record, sampled rows after the first
+    step). Per
+    step the metrics, CUDA-event ms and host ms, the collectives by kind
+    and the host's seconds inside them (``meshctx``); the state's local
+    bytes, peak memory."""
+    from repro_torch.models import meshctx
+    from repro_torch.training import make_train_step
+
+    cfg, tcfg = mesh_train_config()
+    hb = dict(np.load(batch_path))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in hb.items()}
+    init, step_fn, _ = make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state, init_s = host_s(torch, lambda: init(
+        torch.Generator(device=dev).manual_seed(0)))
+    rec = {"init_s": init_s, "held_before_bytes": held,
+           "local_bytes": {"params": local_bytes(state["params"]),
+                           "opt": local_bytes(state["opt"]["m"])
+                           + local_bytes(state["opt"]["v"])},
+           "init_peak_bytes": torch.cuda.max_memory_allocated(),
+           "steps": []}
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    rows = {}
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        meshctx.reset_collective_counts()
+        h0 = time.perf_counter()
+        ev0.record()
+        state, met = step_fn(state, batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        met = {k: float(v) for k, v in met.items()}
+        if not all(np.isfinite(v) for v in met.values()):
+            fail(f"mesh train step {s}: metrics {met}")
+        rec["steps"].append(dict(
+            met, ms=ev0.elapsed_time(ev1), host_ms=host_ms,
+            collectives=meshctx.collective_counts(),
+            collective_host_ms={k: v * 1e3 for k, v in
+                                meshctx.collective_seconds().items()}))
+        if s == 0:
+            rows = sample_state(torch, state, mesh_train_rows(
+                np, cfg, hb["tokens"]))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state
+    return rec, rows
+
+
+def mesh_train_reckon(cfg, S, ranks, shape):
+    """Device bytes reckoned for ``ranks`` ranks of mesh ``shape`` on one
+    card, each holding its block of the 8-bit state: weights and
+    gradients (float32), moments (int8 codes + a float32 scale a 256-block
+    where the reference's rule codes them, float32 otherwise, ≈ 2 B an
+    element), and the larger of the step's activations (its row's
+    vocab-parallel logits, their exponentials and gradient in float32; the
+    units' bf16 carries) and the optimizer's temporaries (four float32
+    copies of the largest local leaf, the table's block); a CUDA context
+    of 0.6 GB each, one more for the parent."""
+    dp, mp = shape
+    table = cfg.vocab_size * cfg.d_model
+    n_tables = 1 if cfg.tie_embeddings else 2
+    body = cfg.param_count() - n_tables * table
+    local = n_tables * table / mp + body / (dp * mp)
+    state = local * (4 + 4 + 2)
+    rows = MESH_TRAIN_B // dp
+    act = (3 * rows * S * cfg.vocab_size / mp * 4
+           + cfg.n_layers * rows * S * cfg.d_model * 2)
+    opt = 4 * table / mp * 4
+    return {"per_rank": state + max(act, opt) + 0.6e9,
+            "total": ranks * (state + max(act, opt) + 0.6e9) + 0.6e9,
+            "local_params": local}
+
+
+def sampled_diff(np, got, want, *, lr) -> dict:
+    """How far sampled rows of a train state after one step
+    (``sample_state``) are from another run's: the largest weight
+    difference over lr, the share of weights more than 0.1·lr apart, the
+    largest code difference and the share of codes more than one apart,
+    the largest relative scale difference, the 8-bit moments' decoded
+    values' largest difference over their block's scale, float32 moments'
+    largest difference over the leaf's largest |m|."""
+    from repro_torch.optim.adamw import BLOCK
+
+    def decoded(q, scale, kind):
+        y = q / 127.0
+        y = np.abs(y) * y if kind == "sq" else y ** 4
+        return y * np.repeat(scale, BLOCK, axis=-1)
+
+    rec = {"weight_over_lr": 0.0, "code": 0, "scale_rel": 0.0,
+           "moment8_rel": 0.0, "moment_rel": 0.0}
+    by_key = {}
+    moved = total = codes = off = 0
+    for key, w in want.items():
+        g = got[key]
+        d = np.abs(g - w)
+        if key.endswith("/p"):
+            name, val = "weight_over_lr", float(d.max() / lr)
+            moved += int((d > 0.1 * lr).sum())
+            total += d.size
+        elif key.endswith("/q"):
+            name, val = "code", int(d.max())
+            off += int((d > 1).sum())
+            codes += d.size
+            sk = key[:-1] + "scale"
+            kind = "sq" if key.endswith("/m/q") else "q4"
+            ref_scale = np.repeat(np.maximum(want[sk], 1e-30), BLOCK, -1)
+            m8 = float((np.abs(decoded(g, got[sk], kind)
+                               - decoded(w, want[sk], kind))
+                        / ref_scale).max())
+            rec["moment8_rel"] = max(rec["moment8_rel"], m8)
+            by_key[key[:-2] + "/decoded"] = m8
+        elif key.endswith("/scale"):
+            name, val = "scale_rel", float(
+                (d / np.maximum(np.abs(w), 1e-30)).max())
+        else:
+            name, val = "moment_rel", float(
+                d.max() / max(np.abs(w).max(), 1e-30))
+        rec[name] = max(rec[name], val)
+        by_key[key] = val
+    rec["weight_moved_share"] = moved / max(total, 1)
+    rec["code_share"] = off / max(codes, 1)
+    rec["by_key"] = by_key
+    return rec
+
+
+# (a)'s bounds in ``sampled_diff``'s terms: phase 13's float32 bounds
+# (weights within 1e-3·lr but at the floor, where Adam's ±lr step may go
+# the other way: at most one in a thousand more than 0.1·lr apart, none
+# more than 2·lr; codes ±1; scales and float32 moments 2e-4).
+WORLD_OF_ONE_BOUNDS = {"weight_over_lr": 2.0 + 1e-3,
+                       "weight_moved_share": 1e-3, "code": 1,
+                       "code_share": 0.0, "scale_rel": 2e-4,
+                       "moment8_rel": 2 * 2 / 127, "moment_rel": 2e-4}
+
+
+def hold_sampled(np, got, want, *, lr, bounds):
+    rec = sampled_diff(np, got, want, lr=lr)
+    bad = {k: v for k, v in rec.items() if k in bounds and not v <= bounds[k]}
+    if bad:
+        fail(f"sampled blocks differ beyond their bounds: {bad} ({rec}, "
+             f"bounds {bounds})")
+    return rec
+
+
+def metric_diff(met, want) -> dict:
+    """Relative differences of a step's metrics from another run's."""
+    return {k: abs(met[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in ("loss", "ce", "grad_norm", "lr")}
+
+
+def hold_metrics(met, want, rel):
+    rec = metric_diff(met, want)
+    bad = {k: v for k, v in rec.items() if not v <= rel}
+    if bad:
+        fail(f"metrics {met} against {want}: {bad} > {rel}")
+    return rec
+
+
+def mesh_train_ranks(root, wd):
+    """Phase 15's four ranks (``MESH_TRAIN_CHILD``) on the card; their
+    records by rank and the wall seconds."""
+    ranks = MESH_TRAIN_SHAPE[0] * MESH_TRAIN_SHAPE[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_TRAIN_CHILD, str(r), str(ranks), wd,
+         root], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(ranks)]
+    results = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=MESH_TRAIN_CHILD_TIMEOUT_S)
+            results.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    child = {}
+    for r, (rc, o, e) in enumerate(results):
+        if rc != 0:
+            fail(f"mesh train rank {r} exited {rc}: {e[-3000:]}")
+        for line in o.splitlines():
+            if line.startswith('{"mesh_train_child"'):
+                child[r] = json.loads(line)["mesh_train_child"]
+    if sorted(child) != list(range(ranks)):
+        fail(f"mesh train ranks printed no record: {sorted(child)}")
+    return child, time.perf_counter() - t0
+
+
+def run_mesh_train_path(torch, np, dev, root, reset_counts, counts):
+    """The LM train step on a mesh (``make_train_step`` under
+    ``meshctx.use_mesh``: the placed train state, the differentiable
+    collectives, the vocab-parallel loss, the placed 8-bit AdamW), plain
+    eager PyTorch, none of the EDM kernels (counts 0). qwen1.5-4b as
+    configured, ``adamw8bit``, the same drawn state (seed 0) and batch
+    (``TokenPipeline`` seed 0) in each run: the no-mesh step first (its
+    metrics and sampled rows kept on the host, the state freed); (a) a
+    world of one on NCCL, mesh (1, 1), held to it at phase 13's bounds;
+    (b) four gloo ranks on the card, mesh (2, 2), one row a dp group,
+    held to (a) at ``MESH_TRAIN_BOUNDS``. Returns (record, launches)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import meshctx
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t_phase = time.perf_counter()
+    cfg, tcfg = mesh_train_config()
+    ranks = MESH_TRAIN_SHAPE[0] * MESH_TRAIN_SHAPE[1]
+    S = MESH_TRAIN_S
+    reckon = mesh_train_reckon(cfg, S, ranks, MESH_TRAIN_SHAPE)
+    if reckon["total"] > MESH_TRAIN_CAP:
+        S = 1024
+        print(json.dumps({"mesh_train_cut": {"S": S, "reckoned": reckon}}),
+              flush=True)
+        reckon = mesh_train_reckon(cfg, S, ranks, MESH_TRAIN_SHAPE)
+    bf16_ops, f32_ops = train_flops(cfg, MESH_TRAIN_B, S)
+    out = {"arch": MESH_TRAIN_ARCH, "B": MESH_TRAIN_B, "S": S,
+           "optimizer": tcfg.optimizer, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+           "params": cfg.param_count(), "reckoned": reckon,
+           "flop_bound_ms": (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS)
+           * 1e3, "bounds": MESH_TRAIN_BOUNDS}
+    secs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        batch_path = os.path.join(tmp, "batch.npz")
+        np.savez(batch_path, **TokenPipeline(
+            vocab_size=cfg.vocab_size, batch=MESH_TRAIN_B, seq_len=S,
+            seed=0).global_batch(0))
+        t0 = time.perf_counter()
+        plain, plain_rows = mesh_train_run(torch, np, dev, batch_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["no_mesh"] = plain
+        secs["no_mesh"] = time.perf_counter() - t0
+        print(json.dumps({"mesh_train_part": "no_mesh", **plain}),
+              flush=True)
+
+        t0 = time.perf_counter()  # (a) a world of one on NCCL
+        mesh = make_mesh((1, 1), ("data", "model"))
+        try:
+            with meshctx.use_mesh(mesh):
+                one, one_rows = mesh_train_run(torch, np, dev, batch_path)
+            one["backend"] = str(dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        lr = plain["steps"][0]["lr"]
+        one["metrics_rel"] = hold_metrics(one["steps"][0],
+                                          plain["steps"][0], TRAIN_SMOKE_RTOL)
+        one["sampled"] = hold_sampled(np, one_rows, plain_rows, lr=lr,
+                                      bounds=WORLD_OF_ONE_BOUNDS)
+        out["world_of_one"] = one
+        secs["world_of_one"] = time.perf_counter() - t0
+        print(json.dumps({"mesh_train_part": "world_of_one", **one}),
+              flush=True)
+
+        t0 = time.perf_counter()  # (b) four gloo ranks on the card
+        child, wall = mesh_train_ranks(root, tmp)
+        rows4 = dict(np.load(os.path.join(tmp, "rows.npz")))
+        four = {"mesh": list(MESH_TRAIN_SHAPE), "wall_s": wall,
+                "by_rank": child, "sampled_vs_world_of_one": sampled_diff(
+                    np, rows4, one_rows, lr=lr)}
+        print(json.dumps({"mesh_train_part": "four_ranks", **four}),
+              flush=True)
+        for r, c in child.items():
+            for k in ("loss", "ce", "grad_norm", "lr"):
+                if c["steps"][0][k] != child[0]["steps"][0][k]:
+                    fail(f"mesh train rank {r}'s {k} differs from rank 0's")
+        four["metrics_rel"] = hold_metrics(
+            child[0]["steps"][0], one["steps"][0],
+            MESH_TRAIN_BOUNDS["metric_rel"])
+        four["sampled"] = hold_sampled(np, rows4, one_rows, lr=lr,
+                                       bounds=MESH_TRAIN_BOUNDS)
+        out["four_ranks"] = four
+        secs["four_ranks"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = dict(secs, phase=time.perf_counter() - t_phase)
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the mesh train path launched EDM kernels: {launches}")
+    return out, launches
+
+
 def bench_resume_row(torch, EDM):
     """The reference bench's journal row (``benchmarks/bench_ccm.py``,
     ``_run_resume_overhead``) on the card: ``EDMConfig(E=3, cache=False)``
@@ -4317,6 +4801,12 @@ def main() -> None:
     print(smi)
     print(json.dumps({"mesh_path": mesh_out}))
 
+    # ---------------------------------------- 15. LM train step on a mesh
+    mtrain_out, mtrain_launches = run_mesh_train_path(
+        torch, np, dev, root, reset_counts, counts)
+    print(smi)
+    print(json.dumps({"mesh_train_path": mtrain_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -4329,6 +4819,7 @@ def main() -> None:
         r["lm_launches"] = lm_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]
+        r["mesh_train_launches"] = mtrain_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

@@ -23,7 +23,10 @@ leaf onto a mesh (``shardings``: a tree matching ``like`` of
 rank keeping its block; a module's parameters become those DTensors. A
 module whose parameters are DTensors already (``models.carry.
 place_params``) takes each rank's block of the stored leaf in place.
-Saving a DTensor stores it whole.
+Saving a DTensor stores it whole: every rank of its world calls ``save``
+and rank 0 writes, so a placed train state restores onto a mesh of
+another shape (``shardings=launch.sharding.to_shardings(mesh,
+state_specs(...))``).
 """
 
 from __future__ import annotations
@@ -148,25 +151,42 @@ class CheckpointManager:
     # -------------------------------------------------------------- save
 
     def save(self, step: int, state) -> str:
+        """Write ``state`` as step ``step``. A state holding DTensors is
+        saved by every rank of their world together: each leaf is
+        gathered whole on every rank, rank 0 writes, and all return once
+        the step is published."""
+        from repro_torch.models import meshctx
+
         leaves, treedef = _flatten(state)
         final = self._step_dir(step)
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        placed = any(meshctx.is_dtensor(t) for t in leaves)
+        if placed:
+            import torch.distributed as dist
+        writer = not placed or dist.get_rank() == 0
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
         manifest = {"treedef": treedef, "n_leaves": len(leaves),
                     "step": step, "leaves": []}
         for i, leaf in enumerate(leaves):
             arr = _host(leaf)
-            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+            if writer:
+                np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
             manifest["leaves"].append(
                 {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+        if not writer:
+            dist.barrier()
+            return final
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
         self._retain()
+        if placed:
+            dist.barrier()
         return final
 
     def _retain(self):

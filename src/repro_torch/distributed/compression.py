@@ -21,10 +21,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import meshctx
+from repro_torch.optim.adamw import BLOCK, _placed_as
 from repro_torch.optim.adamw import _dequantize_flat as _dequantize
 from repro_torch.optim.adamw import _quantize_flat as _quantize
 from repro_torch.optim.adamw import named
-from repro_torch.optim.grad_utils import reference_leaves
+from repro_torch.optim.grad_utils import local, reference_leaves, sharded_axes
 
 
 def compress(g: torch.Tensor, kind: str):
@@ -49,6 +51,8 @@ def ef_compress_tree(grads, error_buf, kind: str, *, stack: int = 1):
     """
     if kind == "none":
         return grads, error_buf
+    if any(meshctx.is_dtensor(g) for g in grads.values()):
+        return _ef_placed(grads, error_buf, kind, stack)
     wire, err = {}, {}
     for names in reference_leaves(grads, stack):
         g32 = torch.cat([(grads[n].float() + error_buf[n]).reshape(-1)
@@ -61,6 +65,63 @@ def ef_compress_tree(grads, error_buf, kind: str, *, stack: int = 1):
             err[n] = g32[off:off + size].reshape(grads[n].shape) - wire[n]
             off += size
     return ({n: wire[n] for n in grads}, {n: err[n] for n in grads})
+
+
+def _flat_index(t) -> torch.Tensor:
+    """Each element of a DTensor's local block: its index in the whole
+    leaf flattened row-major (int64, the block's shape)."""
+    from repro_torch.optim.adamw import _offset
+
+    idx = torch.zeros((), dtype=torch.int64, device=t.device)
+    stride = 1
+    for d in reversed(range(t.ndim)):
+        n = t.to_local().shape[d]
+        pos = torch.arange(n, device=t.device) + _offset(t, d)
+        idx = idx + (pos * stride).reshape((n,) + (1,) * (t.ndim - 1 - d))
+        stride *= t.shape[d]
+    return idx
+
+
+def _ef_placed(grads, error_buf, kind, stack):
+    """``ef_compress_tree`` of placed gradients and error buffers: each
+    rank compresses its local blocks. The int8 wire keeps the reference's
+    flat 256-blocks over the whole (unit-stacked) leaf: each element's
+    block is found from its index in that leaf, a block's absmax is the
+    max over the mesh dims the leaf is sharded on of the ranks' partial
+    maxima (blocks wholly inside a rank's block read only its own), and
+    each rank codes its own elements against it."""
+    wire, err = {}, {}
+    for names in reference_leaves(grads, stack):
+        g32 = [(local(grads[n]).float() + local(error_buf[n])) for n in names]
+        if kind == "bf16":
+            got = [g.to(torch.bfloat16).float() for g in g32]
+        else:
+            t = grads[names[0]]
+            unit = t.numel()
+            nblocks = -(-unit * len(names) // BLOCK)
+            bids = [(_flat_index(t) + u * unit) // BLOCK
+                    for u in range(len(names))]
+            amax = torch.zeros(nblocks, dtype=torch.float32,
+                               device=g32[0].device)
+            for g, b in zip(g32, bids):
+                amax.scatter_reduce_(0, b.reshape(-1), g.abs().reshape(-1),
+                                     "amax")
+            axes = sharded_axes(t)
+            if axes:
+                meshctx.all_reduce_(amax, axes, "max", t.device_mesh)
+            got = []
+            for g, b in zip(g32, bids):
+                a = amax[b]
+                q = torch.round(127.0 * (g / torch.clamp(a, min=1e-30)))
+                got.append(q.to(torch.int8).float().div_(127.0).mul_(a))
+        for n, g, w in zip(names, g32, got):
+            wire[n], err[n] = w, g - w
+    out_w, out_e = {}, {}
+    for n in grads:
+        like = grads[n]
+        out_w[n] = _placed_as(wire[n], like)
+        out_e[n] = _placed_as(err[n], error_buf[n])
+    return out_w, out_e
 
 
 def init_error_buf(params):

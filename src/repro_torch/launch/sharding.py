@@ -218,3 +218,53 @@ class NamedSharding:
     def placements(self) -> list:
         return to_placements(self.mesh, self.spec)
 
+
+
+def to_shardings(mesh, specs):
+    """A tree of specs (dicts and lists) as the same tree of
+    ``NamedSharding``s on ``mesh`` (``CheckpointManager.restore``'s
+    ``shardings``)."""
+    if isinstance(specs, P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: to_shardings(mesh, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [to_shardings(mesh, v) for v in specs]
+    raise TypeError(f"not a spec tree: {type(specs)}")
+
+
+def dp_batch_constraint(mesh):
+    """The dry run's per-microbatch constraint (the reference's
+    ``launch/dryrun.py``): each leaf of a whole microbatch (the same on
+    every rank) placed with its batch over the data-parallel axes where
+    they divide it, as DTensors of this rank's rows."""
+    from repro_torch.models import meshctx
+
+    def constrain(mb: dict) -> dict:
+        return {k: meshctx.place(v, mesh, to_placements(
+            mesh, batch_specs(None, mesh, {k: v})[k]))
+            for k, v in mb.items()}
+
+    return constrain
+
+
+def expert_grad_constraint(cfg, mesh):
+    """The dry run's gradient constraint: the MoE expert banks' gradients
+    (3-d ``mlp.w_*`` leaves) pinned to their parameter's spec, every other
+    gradient left as it is. The port's gradients come back with their
+    parameter's placement (``optim.take_grads``), so this places nothing
+    anew: it checks the layout and redistributes a bank that differs."""
+    from repro_torch.models import meshctx
+
+    def constrain(grads: dict) -> dict:
+        out = {}
+        for n, g in grads.items():
+            names = _names(n)
+            if (meshctx.is_dtensor(g) and g.ndim == 3 and "mlp" in names
+                    and names[-1].startswith("w_")):
+                g = meshctx.redistribute(g, to_placements(
+                    mesh, param_spec(n, g.shape, cfg, mesh)))
+            out[n] = g
+        return out
+
+    return constrain

@@ -366,7 +366,7 @@ def gqa_decode_seqpar(p, cfg, x, cache, pos: int):
     pexp = torch.exp(s - m[..., None])
     l = pexp.sum(-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", pexp, cv.float())
-    m_g = meshctx.all_reduce(m.clone(), "model", "max", mesh)
+    m_g = meshctx.all_reduce(m, "model", "max", mesh)
     corr = torch.exp(m - m_g)
     # the two sums in one all-reduce: l beside o's last dim
     lo = meshctx.all_reduce(torch.cat([o * corr[..., None],

@@ -104,7 +104,7 @@ def dense_init(rng: Init, d_in, d_out, dtype, *, bias=False, scale=None):
     return p
 
 
-def dense(p, x, *, gather_out=True, x_sharded=False):
+def dense(p, x, *, gather_out=True, x_sharded=False, grad_summed=False):
     """``x @ w`` with the reference's (d_in, d_out) layout, the weight cast
     to ``x.dtype`` at use.
 
@@ -114,10 +114,16 @@ def dense(p, x, *, gather_out=True, x_sharded=False):
     "model" (kept local with ``gather_out=False``); sharded on d_in
     (row-parallel) the local rows of ``x`` (or ``x`` itself, already those
     rows, with ``x_sharded``) give partial sums all-reduced over "model".
+
+    Gradients: a column-parallel product gives each rank a partial sum of
+    ``x``'s gradient, summed over "model" in the backward
+    (``meshctx.sum_grad``; ``grad_summed``: the caller did it once for
+    several products of one input); the FSDP gather's backward is a
+    reduce-scatter over the data-parallel axes.
     """
     w = p["w"]
     if meshctx.is_dtensor(w):
-        return _dense_placed(p, x, gather_out, x_sharded)
+        return _dense_placed(p, x, gather_out, x_sharded, grad_summed)
     y = x @ w.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
@@ -133,7 +139,8 @@ def dense_many(ps, x) -> list:
             and meshctx.axis_len("model", ws[0].device_mesh) > 1):
         return [dense(p, x) for p in ps]
     mesh = ws[0].device_mesh
-    locs = [dense(p, x, gather_out=False) for p in ps]
+    x = meshctx.sum_grad(x, "model", mesh)
+    locs = [dense(p, x, gather_out=False, grad_summed=True) for p in ps]
     widths = [t.shape[-1] for t in locs]
     g = meshctx.all_gather(torch.cat(locs, -1), "model", -1, mesh)
     g = g.reshape(*g.shape[:-1], -1, sum(widths))
@@ -146,7 +153,7 @@ def _model_dim(w):
     return meshctx.sharded_dims(w).get("model")
 
 
-def _dense_placed(p, x, gather_out, x_sharded):
+def _dense_placed(p, x, gather_out, x_sharded, grad_summed):
     w = p["w"]
     mesh = w.device_mesh
     dim = _model_dim(w)
@@ -154,6 +161,8 @@ def _dense_placed(p, x, gather_out, x_sharded):
     wl = meshctx.gather(w, fsdp).to(x.dtype)
     b = meshctx.gather(p["b"], fsdp).to(x.dtype) if "b" in p else None
     if dim == 1:
+        if not grad_summed:
+            x = meshctx.sum_grad(x, "model", mesh)
         y = x @ wl
         if b is not None:
             y = y + (b if b.shape[-1] == y.shape[-1] else meshctx.block(
@@ -227,7 +236,9 @@ def mlp(p, x, kind):
              and _model_dim(p["w_down"]["w"]) == 0
              and all(_model_dim(p[n]["w"]) == 1
                      for n in ("w_gate", "w_up") if n in p))
-    up = functools.partial(dense, gather_out=not local)
+    if local:  # one backward sum for both up-projections' partials
+        x = meshctx.sum_grad(x, "model", p["w_down"]["w"].device_mesh)
+    up = functools.partial(dense, gather_out=not local, grad_summed=local)
     if kind == "swiglu":
         h = F.silu(up(p["w_gate"], x)) * up(p["w_up"], x)
     elif kind == "relu2":
@@ -265,9 +276,12 @@ def embed(p, tokens, dtype=None):
 def _embed_placed(table, tokens, dtype):
     """A vocab-parallel lookup: each rank gathers the rows its shard holds
     (zeros for the others) and an all-reduce over "model" sums them, which
-    gives every row exactly."""
+    gives every row exactly. Under autograd the rank's block is cast to
+    ``dtype`` before the gather, as ``embed`` casts the whole table."""
     tl = meshctx.gather(table, tuple(
         a for a in table.device_mesh.mesh_dim_names if a != "model"))
+    if dtype is not None and torch.is_grad_enabled() and tl.requires_grad:
+        tl = tl.to(torch_dtype(dtype))
     if _model_dim(table) == 0:
         lo = meshctx.coordinate("model", table.device_mesh) * tl.shape[0]
         hit = (tokens >= lo) & (tokens < lo + tl.shape[0])
@@ -287,8 +301,42 @@ def unembed(p, x):
     if meshctx.is_dtensor(table):
         tl = meshctx.gather(table, tuple(
             a for a in table.device_mesh.mesh_dim_names if a != "model"))
+        if _model_dim(table) == 0:
+            x = meshctx.sum_grad(x, "model", table.device_mesh)
         y = x.float() @ tl.T.float()
         if _model_dim(table) == 0:
             y = meshctx.all_gather(y, "model", -1, table.device_mesh)
         return y
     return x.float() @ table.T.float()
+
+
+def unembed_ce(p, x, labels):
+    """(cross-entropy of each position, its log-sum-exp) of the float32
+    logits ``x @ tableᵀ`` against ``labels``, as ``log_softmax`` and a
+    gather of the label's entry give it. A table placed with its vocab
+    over "model" takes it vocab-parallel: each rank's logits are its
+    vocab columns only, and one max and one sum (the exponentials' sum and
+    the label's logit, joined) all-reduced over "model" give every rank
+    the whole-vocab values; no rank holds the whole logits."""
+    table = p["table"]
+    if not (meshctx.is_dtensor(table) and _model_dim(table) == 0
+            and meshctx.axis_len("model", table.device_mesh) > 1):
+        z = unembed(p, x)
+        ce = -torch.gather(torch.log_softmax(z, dim=-1), -1,
+                           labels[..., None].long())[..., 0]
+        return ce, torch.logsumexp(z, dim=-1)
+    mesh = table.device_mesh
+    tl = meshctx.gather(table, tuple(
+        a for a in mesh.mesh_dim_names if a != "model"))
+    x = meshctx.sum_grad(x, "model", mesh)
+    z = x.float() @ tl.T.float()  # (..., V / model)
+    n = tl.shape[0]
+    lo = meshctx.coordinate("model", mesh) * n
+    m = meshctx.all_reduce(z.amax(-1), "model", "max", mesh)
+    hit = (labels >= lo) & (labels < lo + n)
+    zt = torch.gather(z, -1, (labels - lo).clamp(0, n - 1)[..., None].long()
+                      )[..., 0] * hit
+    se = torch.exp(z - m[..., None]).sum(-1)
+    red = meshctx.all_reduce(torch.stack([se, zt]), "model", mesh=mesh)
+    lse = m + torch.log(red[0])
+    return lse - red[1], lse

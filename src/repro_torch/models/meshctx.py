@@ -32,15 +32,38 @@ process a rank:
   the H100 machine; ``tools/gloo_cuda_probe.py``), and four ranks on one
   card can only be gloo (NCCL refuses two ranks on one GPU). The
   redistributions are shaped to use what gloo serves on CUDA there:
-  all-reduce (sum and max) and the c10d all-gather; a Partial → Shard
-  goes through an all-reduce and a local slice, a Replicate → Shard is a
-  local slice. Gloo on that machine refuses the list all-to-all, and the
-  path uses none.
+  all-reduce (sum and max), the c10d all-gather and reduce-scatter; a
+  Partial → Shard goes through an all-reduce and a local slice, a
+  Replicate → Shard is a local slice. Gloo on that machine refuses the
+  list all-to-all, and the path uses none.
+
+Gradients. The collectives are autograd Functions returning new tensors
+(under ``no_grad`` they issue the same c10d calls as without autograd).
+Their backward depends on what the ranks along the axis compute:
+
+* along "model" every rank holds the same activations and computes the
+  same downstream function: a sum's backward is the identity, an
+  all-gather's the rank's slice of the gradient, a ``block`` (this rank's
+  slice of a tensor they all hold) all-gathers the gradients; the input
+  of a computation each rank does a part of (a column-parallel product,
+  the rank's experts) takes ``sum_grad``, whose backward sums its partial
+  gradient over "model" (Megatron's f/g pairs);
+* along the data-parallel axes the ranks hold different rows and each
+  computes its own rows' share of the loss (the step's loss is their
+  sum): a sum's backward sums the ranks' gradients, an all-gather's (an
+  FSDP weight gathered at use) is a reduce-scatter, a slice of the batch
+  (``batch_rows``) is a plain slice; a leaf replicated over them has its
+  gradient all-reduced once a step (``optim.grad_utils.take_grads``).
+
+A max all-reduce carries no gradient. A rematerialized unit issues its
+forward collectives again in the backward, in the same order on every
+rank.
 
 ``collective_counts()`` counts the collectives this module issued, by
-kind, since ``reset_collective_counts()``; ``collective_seconds()`` sums
-the host's seconds inside them (a gloo or NCCL call returns when this
-rank's part is done, so this includes waiting for the other ranks).
+kind (forward and backward), since ``reset_collective_counts()``;
+``collective_seconds()`` sums the host's seconds inside them (a gloo or
+NCCL call returns when this rank's part is done, so this includes waiting
+for the other ranks).
 """
 
 from __future__ import annotations
@@ -116,13 +139,16 @@ def coordinate(axis, mesh=None) -> int:
     return mesh.get_local_rank(axis)
 
 
-def all_reduce(t: torch.Tensor, axes, op: str = "sum", mesh=None):
-    """``t`` reduced (sum or max) over the mesh dims ``axes``, in place."""
+def _axes_of(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _c10d_all_reduce(t: torch.Tensor, axes, op: str, mesh) -> torch.Tensor:
+    """``t`` reduced over the mesh dims ``axes`` by c10d, in place."""
     import torch.distributed as dist
 
-    mesh = mesh or _MESH
     red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
-    for axis in ((axes,) if isinstance(axes, str) else axes):
+    for axis in _axes_of(axes):
         if axis_len(axis, mesh) > 1:
             t0 = time.perf_counter()
             dist.all_reduce(t, op=red, group=_group(mesh, axis))
@@ -131,22 +157,147 @@ def all_reduce(t: torch.Tensor, axes, op: str = "sum", mesh=None):
     return t
 
 
-def all_gather(t: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
-    """The shards of ``t`` along the mesh dim ``axis`` put together along
-    tensor dim ``dim``, in the axis' order."""
+def _c10d_all_gather(t: torch.Tensor, axis, dim: int, mesh) -> torch.Tensor:
     import torch.distributed as dist
 
-    mesh = mesh or _MESH
-    n = axis_len(axis, mesh)
-    if n == 1:
-        return t
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(n)]
+    parts = [torch.empty_like(t) for _ in range(axis_len(axis, mesh))]
     t0 = time.perf_counter()
     dist.all_gather(parts, t, group=_group(mesh, axis))
     _SECONDS["all_gather"] += time.perf_counter() - t0
     _COUNTS["all_gather"] += 1
     return torch.cat(parts, dim=dim)
+
+
+def _c10d_reduce_scatter(t: torch.Tensor, axis, dim: int, mesh):
+    """This rank's block (along ``dim``) of ``t`` summed over ``axis``."""
+    import torch.distributed as dist
+
+    parts = [c.contiguous() for c in t.chunk(axis_len(axis, mesh), dim)]
+    out = torch.empty_like(parts[0])
+    t0 = time.perf_counter()
+    dist.reduce_scatter(out, parts, group=_group(mesh, axis))
+    _SECONDS["reduce_scatter"] += time.perf_counter() - t0
+    _COUNTS["reduce_scatter"] += 1
+    return out
+
+
+def _replicated(axis) -> bool:
+    """Whether the ranks along ``axis`` compute one downstream function
+    (the module docstring's two cases: "model" yes, the data-parallel axes
+    no)."""
+    return axis not in DP_AXES
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes = tuple(a for a in axes if not _replicated(a))
+        ctx.mesh = mesh
+        return _c10d_all_reduce(t.clone(), axes, "sum", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axes:
+            g = _c10d_all_reduce(g.clone(), ctx.axes, "sum", ctx.mesh)
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return _c10d_all_gather(t, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _replicated(ctx.axis):
+            g = g.chunk(axis_len(ctx.axis, ctx.mesh), ctx.dim)[
+                coordinate(ctx.axis, ctx.mesh)]
+        else:
+            g = _c10d_reduce_scatter(g, ctx.axis, ctx.dim, ctx.mesh)
+        return g, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block of a tensor replicated along a "model"-like axis;
+    the backward all-gathers the blocks' gradients (Megatron's split)."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        n = axis_len(axis, mesh)
+        return t.chunk(n, dim)[coordinate(axis, mesh)]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _c10d_all_gather(g, ctx.axis, ctx.dim, ctx.mesh), None, \
+            None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``axis`` (the
+    input of a computation each rank along it does a part of)."""
+
+    @staticmethod
+    def forward(ctx, t, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _c10d_all_reduce(g.clone(), ctx.axis, "sum", ctx.mesh), \
+            None, None
+
+
+def _grad_needed(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def all_reduce(t: torch.Tensor, axes, op: str = "sum", mesh=None):
+    """``t`` reduced (sum or max) over the mesh dims ``axes``, as a new
+    tensor (``t`` is not written). A sum is differentiable: along "model"
+    its backward is the identity, along the data-parallel axes a sum of
+    the ranks' gradients. A max carries no gradient (it is taken of
+    ``t`` detached; the callers use it as a stabilizer)."""
+    mesh = mesh or _MESH
+    axes = _axes_of(axes)
+    if op == "max" or not _grad_needed(t):
+        return _c10d_all_reduce(t.detach().clone(), axes, op, mesh)
+    if all(axis_len(a, mesh) == 1 for a in axes):
+        return t
+    return _AllReduce.apply(t, axes, mesh)
+
+
+def all_gather(t: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+    """The shards of ``t`` along the mesh dim ``axis`` put together along
+    tensor dim ``dim``, in the axis' order. Differentiable: along "model"
+    the backward takes this rank's slice of the gradient, along a
+    data-parallel axis it reduce-scatters it."""
+    mesh = mesh or _MESH
+    if axis_len(axis, mesh) == 1:
+        return t
+    if not _grad_needed(t):
+        return _c10d_all_gather(t, axis, dim, mesh)
+    return _AllGather.apply(t, axis, dim % t.ndim, mesh)
+
+
+def all_reduce_(t: torch.Tensor, axes, op: str = "sum", mesh=None):
+    """``t`` reduced over the mesh dims ``axes`` IN PLACE, outside
+    autograd (the optimizer's reductions of gradients and statistics)."""
+    with torch.no_grad():
+        return _c10d_all_reduce(t, _axes_of(axes), op, mesh or _MESH)
+
+
+def sum_grad(t: torch.Tensor, axis="model", mesh=None) -> torch.Tensor:
+    """``t`` as it is; in the backward its gradient is summed over
+    ``axis``. Put on the input of a computation that each rank along
+    ``axis`` does a block of (a column-parallel product, this rank's
+    experts), whose gradient is then a partial sum."""
+    mesh = mesh or _MESH
+    if axis_len(axis, mesh) == 1 or not _grad_needed(t):
+        return t
+    return _SumGrad.apply(t, axis, mesh)
 
 
 # ------------------------------------------------------------ DTensors
@@ -177,11 +328,14 @@ def gather(t, axes=None):
     dims on one tensor dim (first major) are gathered minor first."""
     if not is_dtensor(t):
         return t
-    mesh = t.device_mesh
-    local = t.to_local()
+    return gather_block(t.to_local(), t.device_mesh, t.placements, axes)
+
+
+def gather_block(local: torch.Tensor, mesh, placements, axes=None):
+    """``gather`` of a local block held under ``placements``."""
     for i in reversed(range(mesh.ndim)):
         name = mesh.mesh_dim_names[i]
-        p = t.placements[i]
+        p = placements[i]
         if p.is_partial():
             raise ValueError("gather of a Partial DTensor; constrain it")
         if p.is_shard() and (axes is None or name in axes):
@@ -196,10 +350,14 @@ def full(t):
 
 def block(t: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
     """This rank's block of a whole tensor along ``dim``, cut in equal
-    blocks over the mesh dim ``axis``."""
+    blocks over the mesh dim ``axis``. Along "model" (a tensor every rank
+    along it holds) the backward all-gathers the blocks' gradients; along
+    a data-parallel axis it is a plain slice."""
     n = axis_len(axis, mesh)
     if n == 1:
         return t
+    if _replicated(axis) and _grad_needed(t):
+        return _Split.apply(t, axis, dim % t.ndim, mesh or _MESH)
     w = t.shape[dim] // n
     return t.narrow(dim, coordinate(axis, mesh) * w, w)
 
@@ -288,10 +446,10 @@ def place(t: torch.Tensor, mesh, placements):
     ``placements``: each rank keeps its block, no communication."""
     from torch.distributed.tensor import DTensor
 
-    local = local_slice(t, mesh, placements)
-    # a block keeps no reference to the whole tensor's storage
-    local = (local.clone(memory_format=torch.contiguous_format)
-             if local.numel() != t.numel() else t.contiguous())
+    # the block keeps no reference to the whole tensor's storage (a
+    # replicated one is a copy too: a train state is updated in place)
+    local = local_slice(t, mesh, placements).clone(
+        memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh, list(placements),
                               run_check=False, shape=t.shape,
                               stride=_contiguous_stride(t.shape))
@@ -318,7 +476,7 @@ def redistribute(dt, placements):
     local = dt.to_local()
     for i, p in enumerate(dt.placements):
         if p.is_partial():
-            local = all_reduce(local.clone(), mesh.mesh_dim_names[i],
+            local = all_reduce(local, mesh.mesh_dim_names[i],
                                mesh=mesh)
     cur = [Replicate() if p.is_partial() else p for p in dt.placements]
     for i in reversed(range(mesh.ndim)):
@@ -328,8 +486,7 @@ def redistribute(dt, placements):
             cur[i] = Replicate()
     for i, p in enumerate(placements):
         if p.is_shard() and not cur[i].is_shard():
-            w = local.shape[p.dim] // mesh.size(i)
-            local = local.narrow(p.dim, mesh.get_local_rank(i) * w, w)
+            local = block(local, mesh.mesh_dim_names[i], p.dim, mesh)
     return DTensor.from_local(local.contiguous(), mesh, placements,
                               run_check=False, shape=dt.shape,
                               stride=_contiguous_stride(dt.shape))
@@ -417,6 +574,50 @@ def activation(x: torch.Tensor):
                    "dp", *([None] * (x.ndim - 1)))
     _BATCH_SHARDED = any(p.is_shard() for p in dt.placements)
     return dt
+
+
+def batch_local(t) -> tuple:
+    """(this rank's rows of a batch leaf, whether they are a block of the
+    batch). A DTensor gives its local rows (gathered whole over the other
+    mesh dims); a whole tensor (the same on every rank) its block over the
+    data-parallel axes where they divide its batch, else all of it."""
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        rows = gather(t, tuple(a for a in mesh.mesh_dim_names
+                               if a not in DP_AXES))
+        return rows, any(p.is_shard() and p.dim == 0 and
+                         mesh.mesh_dim_names[i] in DP_AXES
+                         for i, p in enumerate(t.placements))
+    if t.shape[0] % dp_size():
+        return t, False
+    for a in _dp_axes(_MESH):
+        t = block(t, a, 0)
+    return t, True
+
+
+def rows_activation(rows: torch.Tensor, batch: int, sharded: bool):
+    """A layer input made of this rank's rows (``batch_local``) as the
+    activation DTensor of a ``batch``-row batch: Shard(0) over the
+    data-parallel axes when ``sharded``, replicated otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    global _BATCH_SHARDED
+    _BATCH_SHARDED = sharded
+    pl = [Shard(0) if sharded and a in DP_AXES else Replicate()
+          for a in _MESH.mesh_dim_names]
+    shape = (batch,) + tuple(rows.shape[1:])
+    return DTensor.from_local(rows, _MESH, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def dp_size(mesh=None) -> int:
+    """The product of the data-parallel axes' sizes."""
+    mesh = mesh or _MESH
+    n = 1
+    for a in _dp_axes(mesh):
+        n *= axis_len(a, mesh)
+    return n
 
 
 def wrap_like(rows: torch.Tensor, like):

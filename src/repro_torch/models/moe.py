@@ -103,8 +103,17 @@ def _moe_local(x, router, wg, wu, wd, shard_id=0, *, k, E, cf, mesh=None,
     se, st, pos, wts, counts, probs = _route(xf, router, k, E, cf)
     C = _capacity(T, k, E, cf)
     E_loc = wg.shape[0]
-    gathered = _expert_block(wg, wu, wd, xf, se - shard_id * E_loc, st, pos,
-                             C)
+    if E_loc != E:
+        # Expert-parallel: this rank computes its experts' rows only, so
+        # the gradients of the tokens it dispatches and of their routing
+        # weights are partial sums over "model" (the routing itself runs
+        # whole on every model rank).
+        xf_e = meshctx.sum_grad(xf, "model", mesh)
+        wts = meshctx.sum_grad(wts, "model", mesh)
+    else:
+        xf_e = xf
+    gathered = _expert_block(wg, wu, wd, xf_e, se - shard_id * E_loc, st,
+                             pos, C)
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(
         0, st, wts.to(x.dtype) * gathered)
     if E_loc != E:  # expert-parallel: combine partial outputs
@@ -114,7 +123,7 @@ def _moe_local(x, router, wg, wu, wd, shard_id=0, *, k, E, cf, mesh=None,
         n = 1
         for a in dp_names:
             n *= meshctx.axis_len(a, mesh)
-        aux = meshctx.all_reduce(aux.clone(), dp_names, mesh=mesh) / n
+        aux = meshctx.all_reduce(aux, dp_names, mesh=mesh) / n
     return y.reshape(B, S, D), aux
 
 

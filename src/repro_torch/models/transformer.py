@@ -28,7 +28,9 @@ unit boundary); a unit's layers run on the rank's local rows. Decode
 attention dispatches to ``gqa_decode_seqpar`` when
 ``meshctx.seqpar_decode()`` is on. A recurrent layer (Mamba, xLSTM) on a
 mesh gathers its mixer's parameters and its state whole for the step and
-keeps its own block of the new state.
+keeps its own block of the new state. ``loss_fn`` on a mesh takes each
+rank's rows and its vocab block (``_mesh_loss``): the train step's
+gradients flow back through the collectives by ``meshctx``'s rules.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     torch_dtype,
     unembed,
+    unembed_ce,
 )
 from repro_torch.models.meshctx import constrain
 
@@ -251,7 +254,10 @@ def forward_train(params, cfg, batch):
 
 def loss_fn(params, cfg, batch, *, aux_weight: float = 0.01,
             zloss: float = 0.0):
-    """Mean CE (+ MoE aux, + optional z-loss). Returns (loss, metrics)."""
+    """Mean CE (+ MoE aux, + optional z-loss). Returns (loss, metrics).
+    On a mesh: ``_mesh_loss``."""
+    if meshctx.get_mesh() is not None:
+        return _mesh_loss(params, cfg, batch, aux_weight, zloss)
     logits, aux = forward_train(params, cfg, batch)
     labels = batch["labels"] if "labels" in batch else batch["tokens"]
     if cfg.causal:
@@ -268,6 +274,57 @@ def loss_fn(params, cfg, batch, *, aux_weight: float = 0.01,
         loss = loss + zloss * torch.mean(lse ** 2)
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _mesh_loss(params, cfg, batch, aux_weight, zloss):
+    """``loss_fn`` on a mesh. ``batch``: whole tensors (the same on every
+    rank) or DTensors placed by ``batch_specs``; each rank embeds and runs
+    its own rows only (its block over the data-parallel axes where they
+    divide the batch). The cross-entropy is taken over the rank's rows,
+    vocab-parallel over "model" (``layers.unembed_ce``: no logits are
+    gathered), as Σ CE / the global token count; the MoE ``aux`` (the dp
+    mean of the groups' aux) and the z-loss keep the reference's meaning.
+    The loss each rank differentiates is its share of the step's loss (the
+    shares sum to it over the data-parallel axes, so each rank's
+    gradients are its share too, summed by the collectives' backward and
+    ``take_grads``); the returned loss and metrics hold the whole step's
+    values (one all-reduce over the data-parallel axes)."""
+    mesh = meshctx.get_mesh()
+    key = "embeds" if cfg.embed_inputs else "tokens"
+    B = batch[key].shape[0]
+    local, sharded = {}, False
+    for k, v in batch.items():
+        local[k], sharded = meshctx.batch_local(v)
+    if cfg.embed_inputs:
+        x = local["embeds"].to(_dtype(cfg))
+    else:
+        x = embed(params["embed"], local["tokens"], _dtype(cfg))
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(x.shape[0], S)
+    x = meshctx.rows_activation(x, B, sharded)
+    x, aux, _ = _stack_forward(params, cfg, x, positions, mode="train")
+    labels = local["labels"] if "labels" in local else local["tokens"]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.causal:
+        x, labels = x[:, :-1], labels[:, 1:]
+    table = params["embed"] if (cfg.tie_embeddings and "embed" in params) \
+        else params["lm_head"]
+    ce, lse = unembed_ce(table, x, labels)
+    n_dp = meshctx.dp_size(mesh)
+    # rows replicated over dp: every dp rank holds the whole batch's loss
+    share = 1.0 if sharded else 1.0 / n_dp
+    n_tok = B * ce.shape[1]
+    ce_part = ce.sum() / n_tok * share
+    loss = ce_part
+    if any(k.endswith("_moe") for k in cfg.pattern):
+        loss = loss + aux_weight * aux / n_dp
+    if zloss:
+        loss = loss + zloss * torch.sum(lse ** 2) / n_tok * share
+    whole = meshctx.all_reduce(torch.stack([ce_part, loss]).detach(),
+                               meshctx.DP_AXES, mesh=mesh)
+    return whole[1] + (loss - loss.detach()), {
+        "ce": whole[0], "aux": aux, "loss": whole[1]}
 
 
 # --------------------------------------------------------------- serving

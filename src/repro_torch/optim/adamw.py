@@ -31,10 +31,12 @@ are the reference's.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
+from repro_torch.models import meshctx
 from repro_torch.optim.grad_utils import stacked
 
 BLOCK = 256
@@ -93,8 +95,12 @@ def _const(x: float, dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-def _quantize(x: torch.Tensor, kind: str = "lin") -> dict:
-    """Last-axis block codec (optimizer moments). Math runs in x.dtype."""
+def _quantize(x: torch.Tensor, kind: str = "lin", cut=None) -> dict:
+    """Last-axis block codec (optimizer moments). Math runs in x.dtype.
+    ``cut``: ``x`` is a rank's block of a leaf whose blocks straddle the
+    ranks along its last dim (``Cut``)."""
+    if cut is not None:
+        return _quantize_cut(x, kind, cut)
     *lead, last = x.shape
     b = x.reshape(*lead, last // BLOCK, BLOCK)
     amax = torch.linalg.vector_norm(b, float("inf"), dim=-1, keepdim=True)
@@ -104,11 +110,115 @@ def _quantize(x: torch.Tensor, kind: str = "lin") -> dict:
 
 
 def _dequantize(enc: dict, shape, size=None, kind: str = "lin",
-                dtype=torch.float32) -> torch.Tensor:
+                dtype=torch.float32, cut=None) -> torch.Tensor:
+    if cut is not None:
+        y = _decode_(enc["q"].to(dtype).div_(127.0), kind)
+        scale = enc["scale"]
+        if cut.scale_placements is not None:
+            scale = cut.my_rows(cut.scale_whole(scale), y)
+        return y.mul_(scale.to(dtype)[..., cut.block_of(y)])
     *lead, last = shape
     y = enc["q"].to(dtype).reshape(*lead, last // BLOCK, BLOCK).div_(127.0)
     y = _decode_(y, kind).mul_(enc["scale"][..., None].to(dtype))
     return y.reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """A rank's block of a placed leaf whose 256-blocks (along the last dim,
+    ``size`` whole) straddle the ranks along the mesh dims ``axes``: the
+    block starts at column ``offset``. The codec keeps the reference's
+    blocks of the whole leaf: a block's absmax is the max over ``axes`` of
+    the ranks' partial maxima, and each rank codes its own elements.
+
+    Where the ``scale`` leaf is placed as the codes but replicated over
+    ``axes`` (its blocks' count is not divisible there), its local block is
+    every block of this rank's rows. Otherwise (``scale_placements``: the
+    sharding rule put the scale's dims elsewhere) the absmax of the whole
+    leaf, (``lead`` rows, blocks), is assembled from the ranks' rows
+    (``rows``: where this rank's rows start on each leading dim; ``axes``
+    then every dim the codes are sharded on) and each rank keeps the
+    scale's block by its own placement."""
+
+    offset: int
+    size: int
+    axes: tuple
+    mesh: object
+    rows: tuple = ()
+    lead: tuple = ()
+    scale_placements: tuple = None
+
+    def block_of(self, x: torch.Tensor) -> torch.Tensor:
+        """The block index of each of ``x``'s last-dim columns."""
+        cols = torch.arange(x.shape[-1], device=x.device) + self.offset
+        return cols // BLOCK
+
+    def my_rows(self, whole: torch.Tensor, like: torch.Tensor):
+        """This rank's rows (those of ``like``, a local block) of a tensor
+        over the whole leaf's leading dims."""
+        for d, (o, n) in enumerate(zip(self.rows, like.shape[:-1])):
+            whole = whole.narrow(d, o, n)
+        return whole
+
+    def scale_whole(self, scale: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's (lead, blocks) scale from this rank's block."""
+        return meshctx.gather_block(scale, self.mesh, self.scale_placements)
+
+
+def _quantize_cut(x, kind, cut: Cut) -> dict:
+    bid = cut.block_of(x)
+    amax = torch.zeros(x.shape[:-1] + (cut.size // BLOCK,), dtype=x.dtype,
+                       device=x.device)
+    amax.scatter_reduce_(-1, bid.expand(x.shape), x.abs(), "amax")
+    if cut.scale_placements is not None:
+        whole = torch.zeros(cut.lead + amax.shape[-1:], dtype=x.dtype,
+                            device=x.device)
+        cut.my_rows(whole, x).copy_(amax)
+        whole = meshctx.all_reduce_(whole, cut.axes, "max", cut.mesh)
+        amax = cut.my_rows(whole, x)
+        scale = meshctx.local_slice(whole, cut.mesh, cut.scale_placements)
+    else:
+        amax = meshctx.all_reduce_(amax, cut.axes, "max", cut.mesh)
+        scale = amax
+    y = x / torch.clamp(amax[..., bid], min=_const(1e-30, x.dtype))
+    return {"q": _encode(y, kind).to(torch.int8),
+            "scale": scale.float().contiguous()}
+
+
+def _offset(dt, dim: int) -> int:
+    """Where a DTensor's local block starts along tensor dim ``dim``."""
+    mesh, off, width = dt.device_mesh, 0, dt.shape[dim]
+    for i, p in enumerate(dt.placements):
+        if p.is_shard() and p.dim == dim:
+            width //= mesh.size(i)
+            off += mesh.get_local_rank(i) * width
+    return off
+
+
+def codec_cut(q, scale):
+    """The ``Cut`` of a placed 8-bit moment (its codes ``q`` and
+    ``scale``), or None where the codec runs on the local blocks alone (a
+    plain leaf, or a last dim whose local width is a multiple of 256:
+    then ``scale`` is placed as ``q``)."""
+    if not meshctx.is_dtensor(q):
+        return None
+    last = q.ndim - 1
+    names = q.device_mesh.mesh_dim_names
+    axes = tuple(names[i] for i, p in enumerate(q.placements)
+                 if p.is_shard() and p.dim == last)
+    local = not axes or q.to_local().shape[-1] % BLOCK == 0
+    if local and list(q.placements) == list(scale.placements):
+        return None
+    if not local and not any(
+            sp.is_shard() if names[i] in axes else sp != q.placements[i]
+            for i, sp in enumerate(scale.placements)):
+        return Cut(_offset(q, last), q.shape[-1], axes, q.device_mesh)
+    return Cut(_offset(q, last), q.shape[-1],
+               tuple(names[i] for i, p in enumerate(q.placements)
+                     if p.is_shard()), q.device_mesh,
+               rows=tuple(_offset(q, d) for d in range(last)),
+               lead=tuple(q.shape[:-1]),
+               scale_placements=tuple(scale.placements))
 
 
 def _quantize_flat(x: torch.Tensor, kind: str = "lin") -> dict:
@@ -162,9 +272,11 @@ def adamw_init(params, *, bits8: bool = False, stack: int = 1):
 
 
 @torch.no_grad()
-def _leaf(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay, bits8):
+def _leaf(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay, bits8,
+          cut=None):
     """One leaf's update: writes ``p`` (and float32 ``m``, ``v``) in place;
-    returns its new (m, v)."""
+    returns its new (m, v). ``cut``: the 8-bit codec's ``Cut`` of a
+    placed leaf (tensors here are its local blocks)."""
     leaf8 = bits8 and isinstance(m, dict)
     # bf16-param leaves do the moment math in bf16 when the moments are
     # 8-bit (they round-trip through int8 codes anyway); float32 masters
@@ -174,8 +286,8 @@ def _leaf(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay, bits8):
     k = functools.partial(_const, dtype=ct)
     g32 = g.to(ct)
     if leaf8:
-        m_f = _dequantize(m, g.shape, kind="sq", dtype=ct)
-        v_f = _dequantize(v, g.shape, kind="q4", dtype=ct)
+        m_f = _dequantize(m, g.shape, kind="sq", dtype=ct, cut=cut)
+        v_f = _dequantize(v, g.shape, kind="q4", dtype=ct, cut=cut)
     else:
         m_f, v_f = m, v
     m_f.mul_(k(b1)).add_(k(1 - b1) * g32)
@@ -192,8 +304,28 @@ def _leaf(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay, bits8):
         p.copy_((p32 - upd).to(p.dtype))
     del upd, p32
     if leaf8:
-        return _quantize(m_f, "sq"), _quantize(v_f, "q4")
+        return _quantize(m_f, "sq", cut), _quantize(v_f, "q4", cut)
     return m_f, v_f
+
+
+def _local(t):
+    if isinstance(t, dict):
+        return {k: _local(x) for k, x in t.items()}
+    return meshctx.local(t)
+
+
+def _placed_as(new, like):
+    """``new`` (local blocks) placed as ``like`` (a DTensor, or a dict of
+    them); as it is when ``like`` is plain."""
+    if isinstance(like, dict):
+        return {k: _placed_as(new[k], like[k]) for k in like}
+    if not meshctx.is_dtensor(like):
+        return new
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(new, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def adamw_update(
@@ -212,19 +344,31 @@ def adamw_update(
     tensors) and the float32 moments in place and returns (params, new
     state). ``grads``: {name: gradient}. ``lr`` may be a 0-d tensor (a
     schedule's); it and the bias corrections 1 − b^step are float32, as
-    the reference's."""
-    step = state["step"] + 1
+    the reference's.
+
+    Placed leaves (DTensors: parameters, gradients and moments placed by
+    ``launch.sharding.state_specs``) update their local blocks; the 8-bit
+    codec keeps the reference's 256-blocks of the whole leaf along its
+    last dim (``codec_cut``). The step counter and ``lr`` are replicated
+    (a DTensor step is read and returned placed)."""
+    step_in = state["step"]
+    step = _local(step_in) + 1
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
     m_out, v_out = {}, {}
     for name, p in named(params).items():
-        m_out[name], v_out[name] = _leaf(
-            p, grads[name], state["m"][name], state["v"][name], lr=lr,
+        m, v = state["m"][name], state["v"][name]
+        cut = (codec_cut(m["q"], m["scale"])
+               if bits8 and isinstance(m, dict) else None)
+        mo, vo = _leaf(
+            _local(p), _local(grads[name]), _local(m), _local(v), lr=lr,
             c1=c1, c2=c2, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay, bits8=bits8)
-    return params, {"step": step, "m": m_out, "v": v_out}
+            weight_decay=weight_decay, bits8=bits8, cut=cut)
+        m_out[name], v_out[name] = _placed_as(mo, m), _placed_as(vo, v)
+    return params, {"step": _placed_as(step, step_in), "m": m_out,
+                    "v": v_out}
 
 
 def make_optimizer(train_cfg, *, stack: int = 1):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import carry as mcarry
+from repro_torch.models import meshctx
 from repro_torch.training.step import make_train_step
 
 
@@ -61,9 +62,13 @@ def _moments(cfg, params_tree, tree, want, where, device):
     return out
 
 
-def state_from_numpy(cfg, tcfg, tree, *, device):
+def state_from_numpy(cfg, tcfg, tree, *, device, mesh=None):
     """The port's train state on ``device`` holding the reference's state
-    ``tree`` (numpy leaves), for ``make_train_step(cfg, tcfg)``."""
+    ``tree`` (numpy leaves), for ``make_train_step(cfg, tcfg)``; with
+    ``mesh``, placed on it (``place_state``)."""
+    if mesh is not None:
+        return place_state(cfg, mesh, state_from_numpy(cfg, tcfg, tree,
+                                                       device=device))
     want = make_train_step(cfg, tcfg)[2]()
     if ("ebuf" in want) != ("ebuf" in tree):
         raise ValueError(
@@ -85,8 +90,9 @@ def state_from_numpy(cfg, tcfg, tree, *, device):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    t = meshctx.full(t.detach()).cpu()
+    # a copy: the state is updated in place by the next step
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 def _insert(tree: dict, path, value):
@@ -132,7 +138,8 @@ def _tree_of(cfg, named: dict) -> dict:
 
 def state_to_numpy(cfg, state) -> dict:
     """The port's train state as the reference's tree of numpy arrays
-    (bf16 leaves as float32: numpy has no bfloat16)."""
+    (bf16 leaves as float32: numpy has no bfloat16). A placed state is
+    gathered whole (every rank of its mesh calls this)."""
     def leaves(d):
         return {n: ({k: _host(x) for k, x in v.items()}
                     if isinstance(v, dict) else _host(v))
@@ -146,3 +153,70 @@ def state_to_numpy(cfg, state) -> dict:
     if "ebuf" in state:
         out["ebuf"] = _tree_of(cfg, leaves(state["ebuf"]))
     return out
+
+
+# ------------------------------------------------------- placed states
+
+
+def _placements(mesh, spec):
+    from repro_torch.launch.sharding import to_placements
+
+    return to_placements(mesh, spec)
+
+
+def _map_state(state, specs, fn):
+    """``fn(leaf, spec)`` over the non-parameter leaves of a train state
+    (step, moments or their codes, error buffers)."""
+    out = {"opt": {"step": fn(state["opt"]["step"], specs["opt"]["step"])}}
+    for key in ("m", "v"):
+        out["opt"][key] = {
+            n: ({k: fn(x, specs["opt"][key][n][k]) for k, x in m.items()}
+                if isinstance(m, dict) else fn(m, specs["opt"][key][n]))
+            for n, m in state["opt"][key].items()}
+    if "ebuf" in state:
+        out["ebuf"] = {n: fn(x, specs["ebuf"][n])
+                       for n, x in state["ebuf"].items()}
+    return out
+
+
+def place_state(cfg, mesh, state):
+    """A whole train state (``init_state`` without a mesh, or
+    ``state_from_numpy``) placed on ``mesh`` by
+    ``launch.sharding.state_specs``: every leaf a DTensor holding this
+    rank's block (the parameters by ``models.carry.place_params``)."""
+    from repro_torch.launch.sharding import state_specs
+    specs = state_specs(cfg, mesh, state)
+    rest = _map_state(state, specs, lambda t, spec: meshctx.place(
+        t, mesh, _placements(mesh, spec)))
+    return {"params": mcarry.place_params(cfg, mesh, state["params"]),
+            **rest}
+
+
+def init_placed_state(cfg, tcfg, mesh, *, generator=None, device=None):
+    """``make_train_step(cfg, tcfg)``'s initial state placed on ``mesh``
+    by ``state_specs`` with no rank holding the whole: the weights drawn
+    leaf by leaf as ``models.carry.place_params`` draws them (each block
+    bit-equal to that slice of the world of one's draw), the moments and
+    error buffers made as zeros of each rank's block."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import state_specs
+
+    abstract = make_train_step(cfg, tcfg)[2]()
+    specs = state_specs(cfg, mesh, abstract)
+    dev = torch.device(device if device is not None else mesh.device_type)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def zeros(t, spec):
+        pl = _placements(mesh, spec)
+        shape = list(t.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] //= mesh.size(i)
+        return DTensor.from_local(
+            torch.zeros(shape, dtype=t.dtype, device=dev), mesh, pl,
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    params = mcarry.place_params(cfg, mesh, generator=generator, device=dev)
+    return {"params": params, **_map_state(abstract, specs, zeros)}

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.distributed.compression import (ef_compress_tree,
                                                  init_error_buf)
+from repro_torch.models import meshctx
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (
     accumulate_microbatches,
@@ -30,7 +31,8 @@ def stacked_units(cfg) -> int:
     return cfg.n_units if cfg.scan_layers else 1
 
 
-def make_train_step(cfg, tcfg):
+def make_train_step(cfg, tcfg, batch_constraint=None,
+                    grad_constraint=None):
     """Returns (init_state(generator) → state, train_step(state, batch) →
     (state, metrics), abstract_state() → the state on the meta device).
 
@@ -39,6 +41,18 @@ def make_train_step(cfg, tcfg):
     tensors on that device. The metrics are the reference's: ``ce`` and
     ``aux`` of the last microbatch, ``loss`` (the accumulated mean),
     ``grad_norm`` (before clipping) and ``lr``, each a 0-d tensor.
+
+    On a mesh (``meshctx.set_mesh``; one process a rank, every rank
+    calling the same functions): ``init_state`` draws a state placed by
+    ``launch.sharding.state_specs`` (``training.carry.init_placed_state``),
+    ``train_step`` takes such a state (``carry.place_state``) and a batch
+    of whole tensors (the same on every rank) or of DTensors placed over
+    the data-parallel axes, and every rank returns the step's metrics.
+    ``batch_constraint`` and ``grad_constraint`` are the reference's:
+    applied to each microbatch and to the accumulated gradients
+    (``accumulate_microbatches``' ``constrain``/``constrain_grads``;
+    ``launch.sharding.dp_batch_constraint`` and
+    ``expert_grad_constraint`` build the dry run's).
     """
     stack = stacked_units(cfg)
     opt_init, opt_update = make_optimizer(tcfg, stack=stack)
@@ -53,6 +67,10 @@ def make_train_step(cfg, tcfg):
         return state
 
     def init_state(generator: torch.Generator):
+        mesh = meshctx.get_mesh()
+        if mesh is not None:
+            from repro_torch.training.carry import init_placed_state
+            return init_placed_state(cfg, tcfg, mesh, generator=generator)
         return state_of(tf.init_params(cfg, device=generator.device,
                                        generator=generator))
 
@@ -63,14 +81,17 @@ def make_train_step(cfg, tcfg):
         return tf.loss_fn(params, cfg, batch, zloss=tcfg.zloss)
 
     def train_step(state, batch):
+        if meshctx.get_mesh() is not None:
+            batch = {k: meshctx.full(v) for k, v in batch.items()}
         (loss, metrics), grads = accumulate_microbatches(
-            loss_fn, state["params"], batch, max(tcfg.microbatch, 1))
+            loss_fn, state["params"], batch, max(tcfg.microbatch, 1),
+            constrain=batch_constraint, constrain_grads=grad_constraint)
         new_state = dict(state)
         if tcfg.grad_compression != "none":
             grads, new_state["ebuf"] = ef_compress_tree(
                 grads, state["ebuf"], tcfg.grad_compression, stack=stack)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = sched(state["opt"]["step"])
+        lr = sched(meshctx.local(state["opt"]["step"]))
         params, opt = opt_update(grads, state["opt"], state["params"], lr=lr)
         del grads
         new_state["params"] = params

@@ -73,3 +73,33 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_the_mesh_train_step_loads_no_jax():
+    """The mesh train step's entry points (placed states, the dry run's
+    constraints, the differentiable collectives) import and build their
+    constraints without loading JAX or the reference."""
+    code = ("import sys\n"
+            "from repro_torch.training import make_train_step\n"
+            "from repro_torch.training.carry import (init_placed_state, "
+            "place_state, state_from_numpy, state_to_numpy)\n"
+            "from repro_torch.launch.sharding import (dp_batch_constraint, "
+            "expert_grad_constraint, to_shardings)\n"
+            "from repro_torch.launch.mesh import abstract_mesh\n"
+            "from repro_torch.models.meshctx import (all_gather, all_reduce, "
+            "all_reduce_, batch_local, rows_activation, sum_grad)\n"
+            "from repro_torch.models.layers import unembed_ce\n"
+            "from repro_torch.optim.adamw import Cut, codec_cut\n"
+            "from repro_torch.optim.grad_utils import (accumulate_microbatches,"
+            " sum_over_dp, take_grads)\n"
+            "from repro_torch.configs import get_config\n"
+            "cfg = get_config('qwen1.5-4b')\n"
+            "expert_grad_constraint(cfg, abstract_mesh((2, 2), "
+            "('data', 'model')))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

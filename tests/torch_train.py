@@ -136,11 +136,22 @@ def _v_hat_rms(ref_tree):
 
 
 def compare(pcfg, pstate, ref_state, *, steps, lr=LR, one_step=False,
-            bits8=False, bf16=False, quanta=None):
-    """Hold the port's state against the reference's (the tolerances
-    above) after ``steps`` steps (``one_step``: one step from the
-    reference's own state); returns a record of the observed maxima."""
-    got_tree = state_to_numpy(pcfg, pstate)
+            bits8=False, bf16=False, quanta=None, code_limit=None):
+    """Hold the port's state (or its ``state_to_numpy`` tree) against the
+    reference's (the tolerances above) after ``steps`` steps
+    (``one_step``: one step from the reference's own state); returns a
+    record of the observed maxima. ``code_limit``: the bound on a code's
+    difference, when not the default (1 after ``one_step``, else
+    ``steps``).
+
+    8-bit moments under the int8 wire: a gradient element whose wire value
+    rounded the other way (its error buffers differ by more than ``ATOL``)
+    moves its moment by a tenth of a quantum, which the signed-sqrt and
+    quartic maps turn into several codes near zero; those elements are
+    free of the code bound (counted among the flips), and the scales are
+    held as the wire's float32 moments (``MOMENT_RTOL_WIRE``)."""
+    got_tree = (pstate if isinstance(pstate["params"], dict)
+                else state_to_numpy(pcfg, pstate))
     got = dict(carry.flatten_tree(got_tree))
     ref_tree = numpy_tree(ref_state)
     want = dict(carry.flatten_tree(ref_tree))
@@ -157,6 +168,9 @@ def compare(pcfg, pstate, ref_state, *, steps, lr=LR, one_step=False,
     top_m = {k: max([float(np.abs(w).max()) for p, w in want.items()
                      if p[:2] == ("opt", k) and p[-1] not in ("q", "scale")
                      and w.size] or [0.0]) for k in ("m", "v")}
+    wire_flip = ({p[1:]: np.abs(got[p].astype(np.float64) - w) > ATOL
+                  for p, w in want.items() if p[0] == "ebuf"}
+                 if bits8 and quanta is not None else {})
     for path, w in want.items():
         g = got[path]
         assert g.shape == w.shape, (path, g.shape, w.shape)
@@ -182,13 +196,17 @@ def compare(pcfg, pstate, ref_state, *, steps, lr=LR, one_step=False,
             rec["code"] = max(rec["code"], int(d.max()))
             rec["flips"] += int((d > 0).sum())
             rec["codes"] += d.size
-            limit = 1 if one_step else steps
-            assert d.max() <= limit, (where, int(d.max()), limit)
+            limit = code_limit if code_limit is not None else (
+                1 if one_step else steps)
+            free = wire_flip.get(path[2:-1])
+            held = d if free is None else d[~free]
+            assert not held.size or held.max() <= limit, (
+                where, int(held.max()), limit)
         elif path[-1] == "scale":
             err = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
             rec["scale"] = max(rec["scale"], err)
-            assert err <= (SCALE_RTOL_BF16 if bf16 else SCALE_RTOL), (
-                where, err)
+            assert err <= (SCALE_RTOL_BF16 if bf16 else MOMENT_RTOL_WIRE
+                           if wire_flip else SCALE_RTOL), (where, err)
         elif path[0] == "ebuf":
             q = quanta[path]
             d = np.abs(g.astype(np.float64) - w)
