@@ -242,6 +242,23 @@ phase passed; any failure exits nonzero. Phases:
    bytes a rank, the step's FLOP bound; the phase's seconds. S is cut to
    1,024 (and printed) if the four ranks' reckoned bytes pass
    ``MESH_TRAIN_CAP``.
+16. dry run — the compile-analysis tools (``repro_torch.launch.dryrun``,
+   ``.roofline``) on fake process groups of 256 and 512 ranks (meta
+   tensors placed as DTensors on "cuda" meshes; nothing is allocated on
+   the card), in child processes. (a) Every cell of the models phases
+   12-15 run (``DRYRUN_ARCHS``: train_4k, prefill_32k, decode_32k) and the
+   EDM cell ``edm_ccm``/``ccm_subject6``, on both production meshes,
+   through the probes, ``DRYRUN_WORKERS`` children at once; then
+   ``roofline --probe --report``; per cell its status, FLOPs, bytes,
+   collectives, temp GB, counting seconds, the dominant term and the
+   roofline fraction (reckoned at H100 SXM rates); any cell not ``ok``
+   fails. (b) The dry run of this smoke's own steps, beside the sweep: phase
+   15's step on a fake (2, 2) world counts every rank's collectives a step
+   exactly, phase 14's llama3 decode step on a fake (1, 4) world likewise;
+   the reckoned peaks (arguments + peak live bytes) within
+   ``DRYRUN_MEM_REL`` of phases 13 and 15's ``max_memory_allocated``;
+   phase 13's FLOPs beside ``train_flops``, the roofline times of phases
+   13 and 15 beside their ms a step. ``dryrun_launches`` 0 on every row.
 
 The second line from the end is a JSON ``{"kernels": [...]}`` record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -415,6 +432,24 @@ TRAIN_SMOKE_RTOL = 2e-5
 # The loop on the card: an unbroken 30-step run against 20 + 10, at the
 # reference's own tolerance (tests/test_train_loop.py:57-58).
 LOOP_RTOL, LOOP_ATOL = 1e-5, 1e-6
+
+# Phase 16, the dry run (repro_torch.launch.dryrun, .roofline) on fake
+# meshes of 256 and 512 ranks, in child processes (a fake process group
+# cannot share a process with phase 15's world). The sweep: every cell of
+# the models phases 12-15 run, and the EDM cell on the Subject6 shape, on
+# both production meshes, a child an arch and mesh, DRYRUN_WORKERS at
+# once (the others' cells, whose recurrent layers' loops over time steps
+# take minutes to count, are the CLI's: PERF.md). The counts of phases 14
+# and 15's own steps are held to theirs exactly; the reckoned peaks
+# (arguments + the peak of live bytes) within DRYRUN_MEM_REL of phases 13
+# and 15's max_memory_allocated.
+DRYRUN_ARCHS = ("llama3-8b", "qwen1.5-4b", "deepseek-v2-lite-16b")
+DRYRUN_EDM = ("ccm_subject6",)
+DRYRUN_MESHES = ("single", "multi")
+DRYRUN_WORKERS = 7           # children at once (the card's host: 8 cores)
+DRYRUN_CHILD_TIMEOUT_S = 400
+DRYRUN_MEM_REL = 0.2
+DRYRUN_DEVICE = "cuda"      # the fake meshes' device type
 
 # A child process of the training phase: the loop on the card, SIGTERM'd by
 # the parent while it waits after its fourth batch.
@@ -712,6 +747,19 @@ if rank == 0:
 dist.barrier()
 dist.destroy_process_group()
 print(json.dumps({"mesh_train_child": rec}))
+"""
+
+
+# The dry run of phases 13-15's own steps in one child process over fake
+# worlds (``dryrun_held``); prints its record.
+DRYRUN_CHILD = r"""
+import json, sys
+root, args = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import torch
+torch.set_num_threads(1)
+import chip_smoke as cs
+print(json.dumps({"dryrun_child": cs.dryrun_held(args)}))
 """
 
 
@@ -4302,6 +4350,256 @@ def run_mesh_train_path(torch, np, dev, root, reset_counts, counts):
     return out, launches
 
 
+def dryrun_summary(rec) -> dict:
+    """The counts of a dry-run record (``dryrun.analyze``'s layout): FLOPs,
+    bytes accessed, the port's collectives by kind and their bytes, and the
+    reckoned peak (arguments + the peak of the bytes made in the step)."""
+    mem = rec["memory"]
+    return {"flops": rec["cost"]["flops"],
+            "bytes_accessed": rec["cost"]["bytes accessed"],
+            "counts": rec["collectives"]["by_port_kind"]["counts"],
+            "collective_bytes": rec["collectives"]["total"],
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "temp_bytes": mem["temp_size_in_bytes"],
+            "peak_bytes": mem["argument_size_in_bytes"]
+            + mem["temp_size_in_bytes"], "count_s": rec["count_s"]}
+
+
+def dryrun_roofline_ms(summary) -> dict:
+    """The roofline terms of a counted step, reckoned at H100 SXM rates
+    (``launch.roofline``'s constants), in ms."""
+    from repro_torch.launch import roofline as rl
+
+    t = {"compute": summary["flops"] / rl.H100_BF16_FLOPS * 1e3,
+         "memory": summary["bytes_accessed"] / rl.H100_HBM_BW * 1e3,
+         "collective": summary["collective_bytes"] / rl.H100_COLL_BW * 1e3}
+    return dict(t, roofline=max(t.values()), dominant=max(t, key=t.get))
+
+
+def dryrun_held(args) -> dict:
+    """The dry run of the steps phases 13-15 ran on the card, each counted
+    as the sweep counts a cell (``dryrun.probe``: one and two units) on
+    meta tensors: phase 13's no-mesh 8-bit step (B × S ``TRAIN_B`` ×
+    ``TRAIN_S``), phase 15's step on a fake (2, 2) world (its config, its
+    whole batch, no constraints), and phase 14's sequence-parallel llama3
+    decode step on a fake (1, 4) world (counted whole)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+
+    def train(cfg, tcfg, mesh, B, S):
+        def build(n_layers, microbatch=None, global_batch=None):
+            return dr.train_cell(
+                dataclasses.replace(cfg, n_layers=n_layers), tcfg, mesh, B, S,
+                constraints=False,
+                stack=cfg.n_units if cfg.scan_layers else 1)
+        return dryrun_summary(dr.probe(build, cfg.n_units, 1,
+                                       len(cfg.pattern), B))
+
+    out = {}
+    cfg = get_config(TRAIN_ARCH)
+    out["train"] = train(cfg, TrainConfig(
+        optimizer="adamw8bit", microbatch=TRAIN_MICRO, warmup_steps=0,
+        total_steps=TRAIN_STEPS), None, TRAIN_B, TRAIN_S)
+    dr.fake_world(MESH_TRAIN_SHAPE[0] * MESH_TRAIN_SHAPE[1])
+    mesh = make_mesh(MESH_TRAIN_SHAPE, ("data", "model"),
+                     device_type=args["device"])
+    cfg, tcfg = mesh_train_config()
+    out["mesh_train"] = train(cfg, tcfg, mesh, MESH_TRAIN_B,
+                              args["mesh_train_S"])
+    dr.fake_world(MESH_RANKS)
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"),
+                     device_type=args["device"])
+    out["mesh_decode"] = dryrun_summary(dr.analyze(*dr.serve_cell(
+        mesh_config("llama3-8b"), "decode", mesh, LM_PROMPTS,
+        args["mesh_s_max"], seqpar=True)))
+    out["device_type"] = mesh.device_type
+    return out
+
+
+def dryrun_sweep(root, out_dir):
+    """The sweep's children (``python -m repro_torch.launch.dryrun``, the
+    cells of one arch on one mesh each, ``DRYRUN_WORKERS`` at once) and
+    the roofline (``--probe --report``) over their records: ({cell name:
+    record}, report rows, wall seconds)."""
+    from repro_torch.configs import cells
+
+    jobs = [(["--arch", a], [(a, s, m) for s in cells(a)], m)
+            for m in DRYRUN_MESHES for a in DRYRUN_ARCHS]
+    jobs += [(["--arch", "edm_ccm", "--shape", s], [("edm_ccm", s, m)], m)
+             for m in DRYRUN_MESHES for s in DRYRUN_EDM]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    rec_dir = os.path.join(out_dir, "dryrun")
+    t0 = time.perf_counter()
+    running, done = [], []
+    try:
+        while jobs or running:
+            while jobs and len(running) < DRYRUN_WORKERS:
+                argv, job_cells, m = jobs.pop(0)
+                running.append((job_cells, time.perf_counter(),
+                                subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *argv, "--mesh", m, "--device", DRYRUN_DEVICE, "--out",
+                     rec_dir], env=env, cwd=root,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            time.sleep(0.2)
+            for item in list(running):
+                job_cells, t_start, p = item
+                if p.poll() is None:
+                    if time.perf_counter() - t_start > DRYRUN_CHILD_TIMEOUT_S:
+                        fail(f"dry run of {job_cells} outlived "
+                             f"{DRYRUN_CHILD_TIMEOUT_S} s")
+                    continue
+                running.remove(item)
+                log = p.stdout.read()
+                if p.returncode != 0:
+                    fail(f"dry run of {job_cells} exited {p.returncode}: "
+                         f"{log[-3000:]}")
+                done += job_cells
+    finally:
+        for _, _, p in running:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    roof_dir = os.path.join(out_dir, "roofline")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--probe",
+         "--report", "--arch", ",".join(DRYRUN_ARCHS), "--dryrun", rec_dir,
+         "--out", roof_dir, "--device", DRYRUN_DEVICE], env=env, cwd=root,
+        capture_output=True, text=True, timeout=DRYRUN_CHILD_TIMEOUT_S)
+    if res.returncode != 0:
+        fail(f"roofline report exited {res.returncode}: {res.stderr[-3000:]}")
+    records = {}
+    for a, s, m in done:
+        name = f"{a}__{s}__{m}"
+        records[name] = read_json(os.path.join(rec_dir, name + ".json"))
+    rows = read_json(os.path.join(roof_dir, "report.json"))
+    return records, rows, wall
+
+
+def run_dryrun_path(torch, np, root, reset_counts, counts, train_out,
+                    mesh_out, mtrain_out):
+    """Phase 16: the compile-analysis tools on fake meshes (none of the
+    EDM kernels: the EDM cell counts the plain versions on meta tensors).
+    (a) The sweep (``dryrun_sweep``): every record ``status: ok``. (b) The
+    dry run of phases 13-15's own steps (``DRYRUN_CHILD``, beside the
+    sweep): phase 15's collectives a step equal to every rank's, phase
+    14's llama3 decode step's equal to every rank's, the reckoned peaks
+    within ``DRYRUN_MEM_REL`` of phases 13 and 15's; phase 13's FLOPs
+    beside ``train_flops``, and the roofline time of phases 13 and 15
+    beside their ms a step. Returns (record, launches)."""
+    import shutil
+    import tempfile
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    llama = mesh_out["llama3-8b"]["four_ranks"]["by_rank"]
+    four = mtrain_out["four_ranks"]["by_rank"]
+    held_args = {"mesh_train_S": mtrain_out["S"], "mesh_s_max": LM_S_MAX,
+                 "device": DRYRUN_DEVICE}
+    child = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, root, json.dumps(held_args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        records, rows, sweep_s = dryrun_sweep(root, tmp)
+        o, e = child.communicate(timeout=DRYRUN_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if child.returncode != 0:
+        fail(f"the dry-run child exited {child.returncode}: {e[-3000:]}")
+    held = next(json.loads(line)["dryrun_child"] for line in o.splitlines()
+                if line.startswith('{"dryrun_child"'))
+
+    roof = {(r["arch"], r["shape"]): r for r in rows}
+    cells_out = []
+    for name, rec in records.items():
+        row = {"cell": name, "status": rec["status"],
+               "count_s": rec.get("count_s"), "total_s": rec.get("total_s")}
+        if rec["status"] == "ok":
+            row.update(flops=rec["cost"]["flops"],
+                       bytes_accessed=rec["cost"]["bytes accessed"],
+                       collectives=rec["collectives"]["counts"],
+                       collective_bytes=rec["collectives"]["total"],
+                       temp_gb=rec["memory"]["temp_size_in_bytes"] / 1e9)
+            r = roof.get((rec["arch"], rec["shape"]))
+            if rec["mesh"] == "single" and r is not None:
+                row.update(dominant=r["dominant"],
+                           roofline_fraction=r["roofline_fraction"],
+                           useful_ratio=r["useful_ratio"])
+        else:
+            row["error"] = rec.get("error")
+        cells_out.append(row)
+    bad = [c["cell"] for c in cells_out if c["status"] != "ok"]
+
+    # (b) held against the card's runs of this smoke
+    strip = ("host_ms", "step_host_ms")
+    checks = {"mesh_train_counts": held["mesh_train"]["counts"],
+              "mesh_decode_counts": held["mesh_decode"]["counts"]}
+    for r, c in four.items():
+        for i, st in enumerate(c["steps"]):
+            if st["collectives"] != held["mesh_train"]["counts"]:
+                fail(f"the dry run counts {held['mesh_train']['counts']} "
+                     f"collectives in phase 15's step; rank {r} step {i} "
+                     f"counted {st['collectives']}")
+    for r, c in llama.items():
+        got = {k: v for k, v in c["collectives_a_step"].items()
+               if k not in strip}
+        if got != held["mesh_decode"]["counts"]:
+            fail(f"the dry run counts {held['mesh_decode']['counts']} "
+                 f"collectives in phase 14's llama3 decode step; rank {r} "
+                 f"counted {got}")
+    a8 = train_out["adamw8bit"]
+    measured = {"train": a8["peak_bytes"] - a8["held_before_bytes"],
+                "mesh_train": max(c["peak_bytes"] for c in four.values())}
+    mem = {}
+    for k, m in measured.items():
+        rel = held[k]["peak_bytes"] / m - 1.0
+        mem[k] = {"reckoned_bytes": held[k]["peak_bytes"],
+                  "argument_bytes": held[k]["argument_bytes"],
+                  "temp_bytes": held[k]["temp_bytes"],
+                  "measured_bytes": m, "rel": rel}
+        if not abs(rel) <= DRYRUN_MEM_REL:
+            fail(f"the dry run reckons a {k} peak of "
+                 f"{held[k]['peak_bytes']} B against {m} B measured "
+                 f"({rel:+.3f})")
+    from repro_torch.configs import get_config
+
+    bf16_ops, f32_ops = train_flops(get_config(TRAIN_ARCH), TRAIN_B, TRAIN_S)
+    flops = {"counted": held["train"]["flops"],
+             "train_flops": bf16_ops + f32_ops,
+             "ratio": held["train"]["flops"] / (bf16_ops + f32_ops)}
+    roofline = {
+        "train": dict(dryrun_roofline_ms(held["train"]),
+                      measured_ms=a8["step_ms_median"]),
+        "mesh_train": dict(dryrun_roofline_ms(held["mesh_train"]),
+                           measured_ms=[c["steps"][-1]["ms"]
+                                        for c in four.values()])}
+    out = {"cells": cells_out, "sweep_s": sweep_s, "held": held,
+           "counts_equal": checks, "memory": mem, "phase13_flops": flops,
+           "roofline_ms": roofline, "rates": (
+               "reckoned at H100 SXM rates: 989e12 FLOP/s bf16, 3.35e12 "
+               "B/s HBM3, 50e9 B/s a card for collectives"),
+           "seconds": time.perf_counter() - t_phase}
+    if bad:
+        fail(f"dry-run cells not ok: {bad}: "
+             f"{[c.get('error') for c in cells_out if c['status'] != 'ok']}")
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the dry-run path launched EDM kernels: {launches}")
+    return out, launches
+
+
 def bench_resume_row(torch, EDM):
     """The reference bench's journal row (``benchmarks/bench_ccm.py``,
     ``_run_resume_overhead``) on the card: ``EDMConfig(E=3, cache=False)``
@@ -4807,6 +5105,13 @@ def main() -> None:
     print(smi)
     print(json.dumps({"mesh_train_path": mtrain_out}))
 
+    # ------------------------------------------------------ 16. dry run
+    dry_out, dry_launches = run_dryrun_path(
+        torch, np, root, reset_counts, counts, train_out, mesh_out,
+        mtrain_out)
+    print(smi)
+    print(json.dumps({"dryrun_path": dry_out}))
+
     path_of = {"knn_multi_e": main_launches, "knn_batch": main_launches,
                "lookup_rho": main_launches, "smap_gram": smap_launches,
                "knn_append": append_launches,
@@ -4820,6 +5125,7 @@ def main() -> None:
         r["train_launches"] = train_launches[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]
         r["mesh_train_launches"] = mtrain_launches[r["name"]]
+        r["dryrun_launches"] = dry_launches[r["name"]]
         if r["launches"] <= 0:
             fail(f"{r['name']} was launched no time on its path")
     print(json.dumps({"kernels": [

@@ -53,6 +53,10 @@ from repro_torch.kernels import ops
 #: Mesh device types and the collective backends that can deliver their
 #: results: NCCL gathers CUDA tensors on the device, gloo gathers on the host.
 _BACKENDS = {"cuda": ("nccl", "gloo"), "cpu": ("gloo",)}
+#: The backend that only counts (``torch.distributed``'s fake process
+#: group, the dry run's world of 256 or 512 ranks in one process): it
+#: exchanges nothing, so a mesh over it takes meta tensors alone.
+COUNTING_BACKEND = "fake"
 
 
 def make_ccm_mesh(shape, names, *, device_type: str = "cuda"):
@@ -177,12 +181,16 @@ def _egroup_layout(E_opt, S: int):
 
 def _comm_device(device_type: str) -> torch.device:
     """Where the world's backend exchanges a ``device_type`` mesh's
-    tensors: the card on NCCL, the host on gloo. Raises on a pair no
-    backend of the group serves (never moving work elsewhere)."""
+    tensors: the card on NCCL, the host on gloo, the meta device on the
+    counting backend (which delivers nothing: ``_on`` refuses any other
+    input there). Raises on a pair no backend of the group serves (never
+    moving work elsewhere)."""
     backend = str(dist.get_backend())
     if ":" in backend:  # per-device backends, "cpu:gloo,cuda:nccl"
         backend = dict(p.split(":") for p in backend.split(",")).get(
             device_type, "none")
+    if backend == COUNTING_BACKEND:
+        return torch.device("meta")
     if backend not in _BACKENDS[device_type]:
         raise ValueError(
             f"backend {backend!r} cannot deliver a {device_type} mesh's "
@@ -200,7 +208,8 @@ def _mesh_device(mesh) -> torch.device:
         raise ValueError(
             f"the mesh holds {mesh.size()} ranks, the world "
             f"{dist.get_world_size()}: a mesh here spans the whole world")
-    _comm_device(mesh.device_type)
+    if _comm_device(mesh.device_type).type == "meta":
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
@@ -208,7 +217,14 @@ def _mesh_device(mesh) -> torch.device:
 
 def _on(x, dev: torch.device) -> torch.Tensor:
     """An input on the mesh's device: arrays are copied there, a tensor
-    on another device type raises."""
+    on another device type raises. On the counting backend's meta device
+    only a meta tensor is taken: anything holding values raises."""
+    if dev.type == "meta" and not (isinstance(x, torch.Tensor)
+                                   and x.is_meta):
+        raise ValueError(
+            f"the {COUNTING_BACKEND!r} process group only counts: it takes "
+            f"meta tensors, not a {type(x).__name__}"
+            + (f" on {x.device}" if isinstance(x, torch.Tensor) else ""))
     if isinstance(x, torch.Tensor):
         if x.device.type != dev.type:
             raise ValueError(f"a {x.device.type} tensor on a "

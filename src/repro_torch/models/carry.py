@@ -102,9 +102,11 @@ def cache_from_numpy(cfg, tree, *, device):
     return out
 
 
-def place_params(cfg, mesh, params=None, *, generator=None, device=None):
+def place_params(cfg, mesh, params=None, *, generator=None, device=None,
+                 spec=None):
     """The parameter module of ``cfg`` with every leaf a DTensor on
-    ``mesh``, placed by ``param_spec``.
+    ``mesh``, placed by ``param_spec`` (or by ``spec(name, shape)``, a rule
+    of the same signature: the dry run's serving specs).
 
     ``params``: a whole module (e.g. ``params_from_numpy``), each leaf cut
     to this rank's block. Without it the weights are drawn as
@@ -118,8 +120,12 @@ def place_params(cfg, mesh, params=None, *, generator=None, device=None):
     from repro_torch.models import meshctx
     from repro_torch.models.layers import Params
 
+    if spec is None:
+        def spec(name, shape):
+            return param_spec(name, shape, cfg, mesh)
+
     def placed(name, t):
-        pl = to_placements(mesh, param_spec(name, t.shape, cfg, mesh))
+        pl = to_placements(mesh, spec(name, t.shape))
         return meshctx.place(t.detach(), mesh, pl)
 
     if params is not None:

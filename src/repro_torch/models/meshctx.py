@@ -61,9 +61,11 @@ rank.
 
 ``collective_counts()`` counts the collectives this module issued, by
 kind (forward and backward), since ``reset_collective_counts()``;
-``collective_seconds()`` sums the host's seconds inside them (a gloo or
-NCCL call returns when this rank's part is done, so this includes waiting
-for the other ranks).
+``collective_bytes()`` sums the bytes of their results on this rank (an
+all-reduce's tensor, an all-gather's whole, a reduce-scatter's block), by
+the same kinds; ``collective_seconds()`` sums the host's seconds inside
+them (a gloo or NCCL call returns when this rank's part is done, so this
+includes waiting for the other ranks).
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ _MESH = None
 _SEQPAR_DECODE = False
 _COUNTS: collections.Counter = collections.Counter()
 _SECONDS: collections.Counter = collections.Counter()
+_BYTES: collections.Counter = collections.Counter()
 
 
 def set_mesh(mesh):
@@ -110,6 +113,7 @@ def use_mesh(mesh):
 def reset_collective_counts():
     _COUNTS.clear()
     _SECONDS.clear()
+    _BYTES.clear()
 
 
 def collective_counts() -> dict:
@@ -118,6 +122,16 @@ def collective_counts() -> dict:
 
 def collective_seconds() -> dict:
     return dict(_SECONDS)
+
+
+def collective_bytes() -> dict:
+    """{kind: bytes of the collectives' results on this rank} since
+    ``reset_collective_counts()``."""
+    return dict(_BYTES)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _group(mesh, axis):
@@ -154,6 +168,7 @@ def _c10d_all_reduce(t: torch.Tensor, axes, op: str, mesh) -> torch.Tensor:
             dist.all_reduce(t, op=red, group=_group(mesh, axis))
             _SECONDS[f"all_reduce_{op}"] += time.perf_counter() - t0
             _COUNTS[f"all_reduce_{op}"] += 1
+            _BYTES[f"all_reduce_{op}"] += _nbytes(t)
     return t
 
 
@@ -166,6 +181,7 @@ def _c10d_all_gather(t: torch.Tensor, axis, dim: int, mesh) -> torch.Tensor:
     dist.all_gather(parts, t, group=_group(mesh, axis))
     _SECONDS["all_gather"] += time.perf_counter() - t0
     _COUNTS["all_gather"] += 1
+    _BYTES["all_gather"] += _nbytes(t) * len(parts)
     return torch.cat(parts, dim=dim)
 
 
@@ -179,6 +195,7 @@ def _c10d_reduce_scatter(t: torch.Tensor, axis, dim: int, mesh):
     dist.reduce_scatter(out, parts, group=_group(mesh, axis))
     _SECONDS["reduce_scatter"] += time.perf_counter() - t0
     _COUNTS["reduce_scatter"] += 1
+    _BYTES["reduce_scatter"] += _nbytes(out)
     return out
 
 

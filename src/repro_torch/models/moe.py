@@ -16,7 +16,7 @@ the no-mesh path by design), each model rank owns E/n experts (its block
 of the placed expert banks) and takes its rows by shifting the sorted
 expert ids into local range (rows out of range drop), the partial outputs
 are summed over "model" by one all-reduce, and ``aux`` is averaged over
-the dp axes. Sort, bincount and the scatters run on local tensors: no
+the dp axes. Sort, the expert counts and the scatters run on local tensors: no
 DTensor strategy is asked for them. Without a mesh the same block runs
 with E_loc = E. ``index_add_`` on CUDA sums a token's expert outputs in
 no fixed order, so the card is held to a tolerance.
@@ -63,7 +63,10 @@ def _route(xf, router, k, E, cf):
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
     st = flat_t[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # The experts' counts by a static-shape scatter (bit-equal to
+    # ``bincount(minlength=E)``, and it runs on meta tensors).
+    counts = torch.zeros(E, dtype=torch.int64, device=xf.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=xf.device) - starts[se]
     return se, st, pos, flat_p[order][:, None], counts, probs
@@ -77,19 +80,24 @@ def _expert_block(wg, wu, wd, xf, se_loc, st, pos, C):
     """Capacity dispatch + expert FFN + gather back for a LOCAL expert
     bank. Rows with se_loc outside [0, E_loc) or pos ≥ C drop from the
     dispatch and read zero back (the reference's out-of-bounds scatter
-    and fill gather)."""
+    and fill gather).
+
+    Every shape is static (no row selection by value, so it also runs on
+    meta tensors): a dropped row is dispatched to a scratch slot past the
+    bank (expert E_loc, position 0), which no expert reads, and gathers
+    back from a zero slot there."""
     E_loc, D, _ = wg.shape
     keep = (se_loc >= 0) & (se_loc < E_loc) & (pos < C)
-    e_k, p_k = se_loc[keep], pos[keep]
-    h = torch.zeros((E_loc, C, D), dtype=xf.dtype, device=xf.device)
-    h[e_k, p_k] = xf[st[keep]]
+    e_k = torch.where(keep, se_loc, E_loc)
+    p_k = torch.where(keep, pos, 0)
+    h = torch.zeros((E_loc + 1, C, D), dtype=xf.dtype, device=xf.device)
+    h[e_k, p_k] = xf[st]
+    h = h[:E_loc]
     gate = torch.bmm(h, wg)
     up = torch.bmm(h, wu)
     out = torch.bmm(F.silu(gate) * up, wd)
-    back = torch.zeros((se_loc.shape[0], D), dtype=out.dtype,
-                       device=out.device)
-    back[keep] = out[e_k, p_k]
-    return back  # (T·k, D)
+    out = torch.cat([out, out.new_zeros((1, C, D))])
+    return out[e_k, p_k]  # (T·k, D)
 
 
 def _moe_local(x, router, wg, wu, wd, shard_id=0, *, k, E, cf, mesh=None,

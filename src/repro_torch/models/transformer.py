@@ -401,17 +401,17 @@ def init_cache(cfg, batch: int, s_max: int, dtype=None, abstract=False, *,
         return {l: {k: make(k, sds, lead) for k, sds in leaves.items()}
                 for l, leaves in unit.items()}
 
-    if mesh is not None and not abstract:
+    if mesh is not None:
         return _placed_cache(init_cache(cfg, batch, s_max, dtype, True),
-                             mesh, dev)
+                             mesh, dev, abstract)
     if cfg.scan_layers:
         return unit_tree((n,))
     return [unit_tree(()) for _ in range(n)]
 
 
-def _placed_cache(abstract_cache, mesh, dev):
+def _placed_cache(abstract_cache, mesh, dev, abstract=False):
     """Zeros (``m`` at -1e30) placed by ``cache_specs``: each rank makes
-    only its block."""
+    only its block (a meta block when ``abstract``)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.sharding import cache_specs, to_placements
@@ -425,7 +425,8 @@ def _placed_cache(abstract_cache, mesh, dev):
             if p.is_shard():
                 shape[p.dim] //= mesh.size(i)
         fill = xl.M_INIT if name == "m" else 0.0
-        local = torch.full(shape, fill, dtype=t.dtype, device=dev)
+        local = (torch.empty(shape, dtype=t.dtype, device=dev) if abstract
+                 else torch.full(shape, fill, dtype=t.dtype, device=dev))
         return DTensor.from_local(local, mesh, pl, run_check=False,
                                   shape=t.shape, stride=t.stride())
 

@@ -32,7 +32,7 @@ def stacked_units(cfg) -> int:
 
 
 def make_train_step(cfg, tcfg, batch_constraint=None,
-                    grad_constraint=None):
+                    grad_constraint=None, *, stack=None):
     """Returns (init_state(generator) → state, train_step(state, batch) →
     (state, metrics), abstract_state() → the state on the meta device).
 
@@ -53,8 +53,12 @@ def make_train_step(cfg, tcfg, batch_constraint=None,
     (``accumulate_microbatches``' ``constrain``/``constrain_grads``;
     ``launch.sharding.dp_batch_constraint`` and
     ``expert_grad_constraint`` build the dry run's).
+
+    ``stack``: the units the reference stacks into one leaf (by default
+    ``stacked_units(cfg)``); the dry run's probes, which cut the depth,
+    pass the whole model's, so that each unit's leaves are coded as there.
     """
-    stack = stacked_units(cfg)
+    stack = stacked_units(cfg) if stack is None else int(stack)
     opt_init, opt_update = make_optimizer(tcfg, stack=stack)
     sched = functools.partial(
         warmup_cosine, peak_lr=tcfg.learning_rate,

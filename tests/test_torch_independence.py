@@ -63,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training.carry, repro_torch.data.pipeline, "
             "repro_torch.distributed.compression, "
             "repro_torch.launch.train, repro_torch.launch.mesh, "
-            "repro_torch.launch.sharding\n"
+            "repro_torch.launch.sharding, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a, smoke=s) for a in ARCHS for s in (0, 1)]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -102,4 +103,27 @@ def test_the_mesh_train_step_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_dry_run_loads_no_jax():
+    """The compile-analysis tools count a cell over a fake world and write
+    a report without loading JAX or the reference (the reference's
+    launchers set ``XLA_FLAGS`` when imported; the port's set nothing)."""
+    code = ("import os, sys, tempfile\n"
+            "flags = os.environ.get('XLA_FLAGS')\n"
+            "from repro_torch.launch import dryrun, roofline\n"
+            "d = tempfile.mkdtemp()\n"
+            "assert dryrun.main(['--arch', 'llama3-8b', '--shape', "
+            "'decode_32k', '--device', 'cpu', '--out', d]) == 0\n"
+            "rows = roofline.main(['--report', '--dryrun', d, '--out', d])\n"
+            "assert [(r['arch'], r['shape']) for r in rows] == "
+            "[('llama3-8b', 'decode_32k')]\n"
+            "assert os.environ.get('XLA_FLAGS') == flags\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
