@@ -1,0 +1,6 @@
+"""Device (H100): 1 − the union of device intervals over the wall of the
+profiled xmap calls."""
+
+
+def read(ctx):
+    return ctx.idle_share()
