@@ -260,6 +260,12 @@ def drive_batched(Nl: int, B: int, launch, *, start: int = 0,
     * ``monitor`` — a ``distributed.fault.StragglerMonitor`` timed over
       each loop iteration (launch of tile i + landing of tile i−1) and
       stamped with the landed tile's first row.
+
+    Traced, the loop is an ``engine.drive`` span holding one
+    ``engine.launch`` span a launch (the enqueue) and one ``engine.land``
+    span a landing (the copy to the host and into the result; attributes
+    ``a``, ``b`` and ``latency_s``, dispatch to landed); ``on_block`` runs
+    after its ``engine.land`` closes.
     """
     if start >= Nl:
         return None
@@ -271,18 +277,15 @@ def drive_batched(Nl: int, B: int, launch, *, start: int = 0,
     def land(pending):
         nonlocal out
         (pa, pb), arr, t_disp = pending
-        t_land = time.perf_counter()
-        block = arr.cpu().numpy()       # the device sync point
-        t_done = time.perf_counter()
-        if out is None:
-            out = np.empty((Nl,) + block.shape[1:], block.dtype)
-        out[pa:pb] = block[: pb - pa]
-        lat_hist.observe(t_done - t_disp)
-        pairs.inc(int(block[: pb - pa].size))
-        if telemetry.active():
-            telemetry.event("engine.tile", a=pa, b=pb,
-                            latency_s=t_done - t_disp,
-                            sync_s=t_done - t_land)
+        with telemetry.span("engine.land", a=pa, b=pb) as sp:
+            block = arr.cpu().numpy()       # the device sync point
+            t_done = time.perf_counter()
+            if out is None:
+                out = np.empty((Nl,) + block.shape[1:], block.dtype)
+            out[pa:pb] = block[: pb - pa]
+            lat_hist.observe(t_done - t_disp)
+            pairs.inc(int(block[: pb - pa].size))
+            sp.annotate(latency_s=t_done - t_disp)
         if on_block is not None:
             on_block(pa, pb, block[: pb - pa])
 
@@ -291,12 +294,14 @@ def drive_batched(Nl: int, B: int, launch, *, start: int = 0,
             if monitor is not None:
                 monitor.start()
             launches.inc()
-            cur = launch(a, min(a + B, Nl), B)
+            b = min(a + B, Nl)
+            with telemetry.span("engine.launch", a=a, b=b):
+                cur = launch(a, b, B)
             if pending is not None:
                 land(pending)
                 if monitor is not None:
                     monitor.stop(pending[0][0])
-            pending = ((a, min(a + B, Nl)), cur, time.perf_counter())
+            pending = ((a, b), cur, time.perf_counter())
         if monitor is not None:
             monitor.start()
         land(pending)

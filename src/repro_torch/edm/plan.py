@@ -137,17 +137,20 @@ def rho_curves_from_master(X, dM, iM, *, E_max, tau, Tp, impl):
 
     Reads the master's own distances and derives each level's Tp-capped
     table post hoc; one own-target lookup-ρ launch per E covers the panel.
+    Traced, the per-E loop is one ``plan.derive`` device span.
     """
     L = X.shape[-1]
     rhos = []
-    for E in range(1, E_max + 1):
-        rows = pred_rows(L, E, tau, Tp)
-        mx = num_embedded(L, E, tau) - 1 - Tp
-        off = embed_offset(E, tau, Tp)
-        dk, ik, _ = _derive(dM[:, E - 1, :rows], iM[:, E - 1, :rows],
-                            k=E + 1, max_idx=mx)
-        w = ops.make_weights(dk)
-        rhos.append(ops.lookup_rho_own(X, ik, w, offset=off, impl=impl))
+    with telemetry.device_span("plan.derive", X.device, E_max=E_max):
+        for E in range(1, E_max + 1):
+            rows = pred_rows(L, E, tau, Tp)
+            mx = num_embedded(L, E, tau) - 1 - Tp
+            off = embed_offset(E, tau, Tp)
+            dk, ik, _ = _derive(dM[:, E - 1, :rows], iM[:, E - 1, :rows],
+                                k=E + 1, max_idx=mx)
+            w = ops.make_weights(dk)
+            rhos.append(ops.lookup_rho_own(X, ik, w, offset=off,
+                                           impl=impl))
     return torch.stack(rhos, dim=1)
 
 

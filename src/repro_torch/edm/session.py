@@ -270,8 +270,9 @@ class EDM:
             self._bump("knn_master_hits")
             return hit
         k_m = max(E_levels + 1, c.k or 0) + c.slack
-        with telemetry.span("session.master_build", E_levels=E_levels,
-                            k_master=k_m, N=self.data.N):
+        with telemetry.device_span("session.master_build", self.device,
+                                   E_levels=E_levels, k_master=k_m,
+                                   N=self.data.N):
             dM, iM = panel_master(self.data.panel, E_max=E_levels,
                                   tau=c.tau, k=k_m, impl=self._impl)
         self._bump("knn_master_builds")
@@ -665,7 +666,7 @@ class EDM:
             else:
                 rho = self._xmap_local(method, groups, theta, run_dir,
                                        E_opt)
-        return self._mask_matrix(rho)
+            return self._mask_matrix(rho)
 
     def _xmap_group_launch(self, method, E, members, theta, iM):
         """One E-group's engine as a ``launch(a, b, B)`` closure + its B."""
@@ -733,7 +734,9 @@ class EDM:
                                        E_opt)
         rho = np.zeros((N, N), np.float32)
         for E, members, launch, B in entries:
-            rho[:, members] = drive_batched(N, B, launch)
+            block = drive_batched(N, B, launch)
+            with telemetry.span("session.assemble", E=E, n=len(members)):
+                rho[:, members] = block
         return rho
 
     def _xmap_sharded(self, method, E_opt, theta,

@@ -8,8 +8,10 @@ plain versions on CUDA tensors (the on-card comparison in
 ``chip_smoke.py``); ``impl="auto"`` is the device rule above.
 
 Each dispatch bumps an ``edm_ops_<op>_calls`` counter (the invocation
-counts the session tests assert on); each kernel wrapper also keeps a
-plain integer ``launches`` count of the kernels it actually launched.
+counts the session tests assert on) and emits no telemetry event: dispatch
+is counters only, and time is taken by the spans of the layers above
+(``repro_torch.telemetry``). Each kernel wrapper also keeps a plain
+integer ``launches`` count of the kernels it actually launched.
 """
 
 from __future__ import annotations
@@ -46,11 +48,8 @@ def _kernel_path(t: torch.Tensor, impl: str) -> bool:
     return check_impl(impl) == "auto" and t.device.type != "cpu"
 
 
-def _tel(op: str, kernel: bool, **attrs) -> None:
+def _tel(op: str) -> None:
     telemetry.counter(f"edm_ops_{op}_calls").inc()
-    if telemetry.active():
-        telemetry.event(f"ops.{op}", impl="cuda" if kernel else "ref",
-                        **attrs)
 
 
 def _check_variant(variant: str) -> None:
@@ -70,8 +69,7 @@ def pairwise_distances(x: torch.Tensor, *, E: int, tau: int = 1,
     has its own plain version.)"""
     _check_variant(variant)
     kernel = _kernel_path(x, impl)
-    _tel("pairwise_distances", kernel, E=E, tau=tau, variant=variant,
-         L=int(x.shape[-1]))
+    _tel("pairwise_distances")
     if variant == "mxu":
         fn = (pairwise_dist.pairwise_distances_mxu if kernel
               else _ref.pairwise_distances_mxu)
@@ -86,7 +84,7 @@ def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
     """k nearest per row → (Euclidean dists, int32 idx), ascending
     (paper Alg. 2)."""
     kernel = _kernel_path(D, impl)
-    _tel("topk_select", kernel, k=k, Lp=int(D.shape[-1]))
+    _tel("topk_select")
     if not kernel:
         return _ref.topk_select(D, k=k, exclude_self=exclude_self,
                                 max_idx=max_idx)
@@ -100,8 +98,7 @@ def topk_select_sizes(D: torch.Tensor, *, k: int, max_idxs,
     (S, Lp, k) each; dist = inf / idx = ``ref.PAD_IDX`` where a cap leaves
     fewer than k candidates. The CCM convergence-sweep primitive."""
     kernel = _kernel_path(D, impl)
-    _tel("topk_select_sizes", kernel, k=k, sizes=len(max_idxs),
-         Lp=int(D.shape[-1]))
+    _tel("topk_select_sizes")
     if not kernel:
         return _ref.topk_select_sizes(D, k=k, max_idxs=max_idxs,
                                       exclude_self=exclude_self)
@@ -127,8 +124,7 @@ def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
                          f"distances; got variant={variant!r}")
     k = E + 1 if k is None else int(k)
     kernel = _kernel_path(x, impl)
-    _tel("all_knn", kernel, E=E, k=k, fused=fused, variant=variant,
-         L=int(x.shape[-1]))
+    _tel("all_knn")
     if fused:
         fn = knn_fused.all_knn_fused if kernel else _ref.all_knn
         return fn(x, E=E, tau=tau, k=k, exclude_self=exclude_self,
@@ -142,7 +138,7 @@ def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
            offset: int = 0, impl: str = "auto") -> torch.Tensor:
     """Batched simplex lookup → (N, rows) predictions (paper Alg. 3)."""
     kernel = _kernel_path(Y, impl)
-    _tel("lookup", kernel, N=int(Y.shape[0]))
+    _tel("lookup")
     if not kernel:
         return _ref.lookup(Y, idx, w, offset=offset)
     return _lookup_k.lookup(Y, idx, w, offset=offset)
@@ -158,7 +154,7 @@ def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
     Padding is inf / -1; ``[.., E-1, :Lp_E, :k_E]`` is the table at E.
     """
     kernel = _kernel_path(X, impl)
-    _tel("all_knn_multi_e", kernel, E_max=E_max, L=int(X.shape[-1]))
+    _tel("all_knn_multi_e")
     if not kernel:
         return _ref.all_knn_multi_e(X, E_max=E_max, tau=tau, k=k,
                                     exclude_self=exclude_self,
@@ -184,8 +180,7 @@ def master_append(X: torch.Tensor, dists: torch.Tensor, idx: torch.Tensor,
     kernel launch for the whole panel on the GPU.
     """
     kernel = _kernel_path(X, impl)
-    _tel("master_append", kernel, E_max=int(dists.shape[-3]),
-         L=int(X.shape[-1]), dt=int(X.shape[-1]) - int(dists.shape[-2]))
+    _tel("master_append")
     fn = knn_append.master_append if kernel else _ref.master_append
     if X.ndim == 1:
         d, i = fn(X[None], dists[None], idx[None], tau=tau)
@@ -199,7 +194,7 @@ def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
     """All-kNN tables for B library series in one launch → (B, Lp, k),
     bit-invariant in B."""
     kernel = _kernel_path(X, impl)
-    _tel("all_knn_batch", kernel, E=E, B=int(X.shape[0]), L=int(X.shape[-1]))
+    _tel("all_knn_batch")
     if not kernel:
         return _ref.all_knn_batch(X, E=E, tau=tau, k=k,
                                   exclude_self=exclude_self, max_idx=max_idx)
@@ -227,7 +222,7 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
     panel by a caller that launches repeatedly (optional).
     """
     kernel = _kernel_path(Y, impl)
-    _tel("lookup_rho", kernel, N=int(Y.shape[0]))
+    _tel("lookup_rho")
     if not kernel:
         if idx.ndim == 2:
             return _ref.lookup_rho(Y, idx, w, offset=offset)
@@ -242,7 +237,7 @@ def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
                    offset: int = 0, impl: str = "auto") -> torch.Tensor:
     """Table b against its own series X[b] only → (B,) ρ (one launch)."""
     kernel = _kernel_path(X, impl)
-    _tel("lookup_rho", kernel, N=int(X.shape[0]))
+    _tel("lookup_rho")
     if not kernel:
         return _ref.lookup_rho_own(X, idx, w, offset=offset)
     return _lookup_k.lookup_rho(X, idx, w, offset=offset, own=True)
@@ -262,7 +257,7 @@ def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
     """
     thetas = tuple(float(t) for t in thetas)
     kernel = _kernel_path(x, impl)
-    _tel("smap_gram", kernel, E=E, thetas=len(thetas), L=int(x.shape[-1]))
+    _tel("smap_gram")
     fn = _smap_gram_k.smap_gram if kernel else _smap_gram_k.plain
     return fn(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,
               exclude_self=exclude_self)

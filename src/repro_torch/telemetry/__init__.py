@@ -26,13 +26,23 @@ through this one subsystem:
   ``torch.profiler.record_function`` bridge (``enable_profiler_trace()``)
   so spans line up with kernel launches in a ``torch.profiler`` trace.
 
-Timing honesty: kernel launches (``ops.*``) are asynchronous on the GPU,
-so ops-level telemetry is counters + attribute events, while *timed*
-spans live at the engine loop (``drive_batched``), where tile landings
-(``.cpu()``) are real device syncs.
+Timing honesty: kernel launches are asynchronous on the GPU, so a host
+span around device work times its enqueue. Dispatch (``kernels.ops``) is
+counters only (``edm_ops_<op>_calls``). Host spans time host work: the
+engine's enqueue (``engine.launch``) and its landings (``engine.land``,
+where ``.cpu()`` is a real device sync) and the session's assembly.
+Device work is timed by ``device_span``: the same span, plus ``dev_s``,
+the device time between two CUDA events recorded on the current stream at
+enter and exit. No call waits for them: a closed device span is held back
+until its end event has completed, each later span exit polls the held
+ones with ``Event.query()``, and ``flush()`` / ``remove_sink`` — which run
+outside the timed calls — wait for the rest, so every device span has
+reached every sink once ``remove_sink`` returns. With emission off no CUDA
+event is made; on a CPU tensor or device the span has no ``dev_s``.
 
-Metric names and span names are those of ``repro.telemetry``, so the two
-packages' observations compare one to one.
+Metric names, and the names of the spans both packages have, are those
+of ``repro.telemetry``, so the two packages' observations compare one to
+one.
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ import threading
 import time
 
 __all__ = [
-    "span", "event", "active", "enable", "disable", "enable_profiler_trace",
+    "span", "device_span", "flush", "event", "active", "enable", "disable",
+    "enable_profiler_trace",
     "counter", "gauge", "histogram", "render_prom", "metrics_snapshot",
     "reset_metrics", "add_sink", "remove_sink", "record",
     "Recorder", "JsonlSink",
@@ -54,11 +65,17 @@ __all__ = [
 # --------------------------------------------------------------- state
 
 _enabled = False
-_profiler_trace = False
+#: (``record_function``, ``torch.autograd._profiler_enabled``) while the
+#: profiler bridge is on, else None.
+_bridge = None
 _sinks: list = []
 _lock = threading.Lock()          # guards sink list mutation + registry
 _span_stack: contextvars.ContextVar[tuple] = contextvars.ContextVar(
     "repro_torch_telemetry_span_stack", default=())
+#: Closed device spans whose end event has not completed: (event, start
+#: CUDA event, end CUDA event), in the order they closed.
+_pending: list = []
+_pending_lock = threading.Lock()
 
 
 def enable() -> None:
@@ -75,10 +92,17 @@ def disable() -> None:
 def enable_profiler_trace(on: bool = True) -> None:
     """Bridge spans to ``torch.profiler.record_function`` so they appear
     as ranges beside the kernel launches of a ``torch.profiler`` trace.
-    Off by default (each range costs a profiler call per span even when
-    no profiler is recording)."""
-    global _profiler_trace
-    _profiler_trace = on
+    Off by default. On, a span opens its range only while a profiler
+    records (a range costs a profiler call; outside a profile a span pays
+    one check), and its ``dur_s`` includes the range's own cost, so nested
+    spans still cover their parent."""
+    global _bridge
+    if on:
+        from torch.autograd import _profiler_enabled
+        from torch.profiler import record_function
+        _bridge = (record_function, _profiler_enabled)
+    else:
+        _bridge = None
 
 
 def active() -> bool:
@@ -93,6 +117,8 @@ def add_sink(sink) -> None:
 
 
 def remove_sink(sink) -> None:
+    """Detach a sink, once every held device span has reached it."""
+    flush()
     with _lock:
         if sink in _sinks:
             _sinks.remove(sink)
@@ -101,6 +127,30 @@ def remove_sink(sink) -> None:
 def _emit(ev: dict) -> None:
     for sink in list(_sinks):
         sink.emit(ev)
+
+
+def _resolve(block: bool) -> None:
+    """Emit the held device spans whose end event has completed (all of
+    them, waiting for each, when ``block``)."""
+    with _pending_lock:
+        done, held = [], []
+        for p in _pending:
+            (done if block or p[2].query() else held).append(p)
+        if not done:
+            return
+        _pending[:] = held
+    for ev, start, end in done:
+        if block:
+            end.synchronize()
+        ev["dev_s"] = start.elapsed_time(end) * 1e-3
+        _emit(ev)
+
+
+def flush() -> None:
+    """Wait for every held device span and emit it (blocks on the device:
+    call it outside timed work)."""
+    if _pending:
+        _resolve(block=True)
 
 
 # --------------------------------------------------------------- spans
@@ -140,26 +190,58 @@ class _Span:
         parent = stack[-1].path if stack else ""
         self.path = f"{parent}/{self.name}" if parent else self.name
         self._token = _span_stack.set(stack + (self,))
-        self._ta = None
-        if _profiler_trace:
-            from torch.profiler import record_function
-            self._ta = record_function(self.path)
-            self._ta.__enter__()
         self._ts = time.time()
         self._t0 = time.perf_counter()
+        self._ta = None
+        bridge = _bridge
+        if bridge is not None and bridge[1]():
+            self._ta = bridge[0](self.path)
+            self._ta.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
-        dur = time.perf_counter() - self._t0
         if self._ta is not None:
             self._ta.__exit__(*exc)
+        dur = time.perf_counter() - self._t0
         _span_stack.reset(self._token)
         ev = {"type": "span", "name": self.name, "path": self.path,
               "ts": self._ts, "dur_s": dur}
         if self.attrs:
             ev["attrs"] = self.attrs
-        _emit(ev)
+        self._close(ev)
+        if _pending:
+            _resolve(block=False)
         return False
+
+    def _close(self, ev: dict) -> None:
+        _emit(ev)
+
+
+class _DeviceSpan(_Span):
+    """A span that also records CUDA events on ``stream`` at enter and
+    exit; its event waits in ``_pending`` until the device has passed
+    the end event."""
+
+    __slots__ = ("_stream", "_start")
+
+    def __init__(self, name: str, attrs: dict, stream):
+        super().__init__(name, attrs)
+        self._stream = stream
+
+    def __enter__(self) -> "_DeviceSpan":
+        import torch
+
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record(self._stream)
+        return super().__enter__()
+
+    def _close(self, ev: dict) -> None:
+        import torch
+
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self._stream)
+        with _pending_lock:
+            _pending.append((ev, self._start, end))
 
 
 def span(name: str, **attrs):
@@ -173,6 +255,27 @@ def span(name: str, **attrs):
     if not active():
         return _NOOP
     return _Span(name, attrs)
+
+
+def device_span(name: str, device, **attrs):
+    """``span`` whose event also carries ``dev_s``, the device time of the
+    work enqueued inside it on the current CUDA stream of ``device`` (a
+    ``torch.device``, its name, or a tensor on it).
+
+    No-op like ``span`` unless ``active()``, with no CUDA event made. On
+    a CPU device it is a plain ``span``: no ``dev_s``. Adds no host sync:
+    the event reaches the sinks once the device has finished the work
+    (see the module's "Timing honesty").
+    """
+    if not active():
+        return _NOOP
+    import torch
+
+    dev = (device.device if isinstance(device, torch.Tensor)
+           else torch.device(device))
+    if dev.type != "cuda":
+        return _Span(name, attrs)
+    return _DeviceSpan(name, attrs, torch.cuda.current_stream(dev))
 
 
 def current_span_path() -> str:

@@ -3,14 +3,16 @@
 Two artifact families flow out of runs and benches:
 
 * telemetry JSONL event logs (``run_dir/telemetry/events.jsonl``) —
-  one JSON object per line, ``type`` either ``"span"`` or ``"event"``;
+  one JSON object per line, ``type`` either ``"span"`` or ``"event"``; a
+  device span also carries ``dev_s``;
 * bench snapshots (``BENCH_*.json``) — rows of
   ``name, us_per_call, derived``.
 
 ``python -m repro_torch.telemetry.schema <files...>`` validates both, so
 a malformed artifact fails the run that wrote it instead of corrupting
 the run inspector's view. The port's copy of ``repro.telemetry.schema``
-(the two packages write the same artifacts). Validators are hand-rolled —
+(the two packages write the same artifacts, and give the same verdicts,
+but for the port's device spans' ``dev_s``). Validators are hand-rolled —
 the schema is small and the repo takes no dependency on jsonschema.
 """
 
@@ -46,6 +48,11 @@ def validate_event(ev) -> list[str]:
             errs.append(_fail("span dur_s must be a number >= 0", ev))
         if not isinstance(ev.get("path"), str):
             errs.append(_fail("span path must be a string", ev))
+    if "dev_s" in ev:  # a device span's device time (spans only)
+        dev = ev["dev_s"]
+        if (t != "span" or isinstance(dev, bool)
+                or not isinstance(dev, (int, float)) or not dev >= 0):
+            errs.append(_fail("dev_s must be a number >= 0 on a span", ev))
     if "attrs" in ev and not isinstance(ev["attrs"], dict):
         errs.append(_fail("attrs must be an object", ev))
     return errs

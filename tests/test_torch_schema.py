@@ -110,3 +110,24 @@ def test_cli_as_a_module(tmp_path):
     res = run(str(good), str(bad))
     assert res.returncode == 1 and "bad.jsonl:1" in res.stderr
     assert run().returncode == 2
+
+
+SPAN = {"type": "span", "name": "plan.derive", "ts": 1.0, "dur_s": 0.1,
+        "path": "session.optimal_E/plan.derive"}
+
+
+@pytest.mark.parametrize("dev_s,ok", [
+    (0, True), (0.0625, True), (3, True),
+    (-1e-9, False), ("0.1", False), (None, False), (True, False),
+    (float("nan"), False), ([0.1], False)])
+def test_span_dev_s_is_an_optional_number_at_least_zero(dev_s, ok):
+    assert schema.validate_event(SPAN) == []
+    errs = schema.validate_event(dict(SPAN, dev_s=dev_s))
+    assert (errs == []) is ok
+    if not ok:
+        assert "dev_s" in errs[0]
+
+
+def test_dev_s_only_on_spans():
+    ev = {"type": "event", "name": "x", "ts": 1.0, "dev_s": 0.1}
+    assert schema.validate_event(ev)
