@@ -29,6 +29,7 @@ import torch
 from repro_torch import telemetry
 from repro_torch.core.embedding import embed_offset, num_embedded, pred_rows
 from repro_torch.kernels import ops
+from repro_torch.kernels.lookup import CHUNK_ROWS
 
 def normalize_lib_sizes(lib_sizes, *, Lp: int, Tp: int = 0):
     """Validate a convergence-sweep size list → (caps, inverse map).
@@ -167,10 +168,11 @@ def cross_map(lib: torch.Tensor, targets: torch.Tensor, *, E: int,
     return rho[0] if squeeze else rho
 
 
-#: Default memory budgets (MB) for the library-batched engine's in-flight
-#: (B, Lp, Lp) float32 distance stack of the plain path (the CUDA kernels
-#: never hold it). A device with its own memory wants launches big enough
-#: to amortize dispatch; on the CPU the stack competes with the cache.
+#: Default memory budgets (MB) of the library-batched engines: what one
+#: launch holds in flight for its B libraries (``direct_batch_bytes`` on
+#: the direct engine's two paths). A device with its own memory wants
+#: launches big enough to amortize dispatch; on the CPU the plain path's
+#: (B, Lp, Lp) distance stack competes with the cache.
 DEFAULT_BATCH_BUDGET_MB = 256
 DEFAULT_BATCH_BUDGET_MB_CPU = 32
 
@@ -185,10 +187,12 @@ def auto_batch_libs(Lp: int, Nl: int, budget_mb: float | None = None, *,
                     per_series_bytes: int | None = None) -> int:
     """Library batch size B with B·per-series bytes under the budget.
 
-    Per-series bytes default to one (Lp, Lp) float32 distance matrix.
-    Under the cap the launches are equalized — B = ceil(Nl / nb) for the
-    smallest launch count nb the cap allows — because a ragged final
-    launch is padded to a full B.
+    Per-series bytes default to one (Lp, Lp) float32 distance matrix, what
+    the direct engine's plain path holds a library; its kernel path
+    (``direct_batch_bytes``), the master route and the S-Map sweep pass
+    their own. Under the cap the launches are equalized — B = ceil(Nl /
+    nb) for the smallest launch count nb the cap allows — because a
+    ragged final launch is padded to a full B.
     """
     budget = _default_budget_mb(device) if budget_mb is None else budget_mb
     per = 4 * Lp * Lp if per_series_bytes is None else max(
@@ -197,6 +201,56 @@ def auto_batch_libs(Lp: int, Nl: int, budget_mb: float | None = None, *,
     cap = max(1, min(Nl, int(budget * 2**20) // per))
     nb = -(-Nl // cap)
     return -(-Nl // nb)
+
+
+def direct_batch_bytes(L: int, Nt: int, *, E: int, tau: int, Tp: int,
+                       k: int, kernel: bool) -> int:
+    """Bytes one direct launch holds in flight for each of its libraries.
+
+    The plain path (``kernel`` False: CPU tensors or ``impl="ref"``) holds
+    the library's (Lp, Lp) float32 distance matrix (``ref.all_knn_batch``).
+    The kernel path never forms it; there a library holds at most:
+
+    * the ``knn_batch`` tables, float32 distances and int32 indices
+      (8·Lp·k);
+    * ``make_weights``' (Lp, k) float32 temporaries, five live at its peak
+      with the weights (20·Lp·k), and its (Lp,) minima, sums and masks
+      (16·Lp);
+    * ``pad_batch``'s copy of the series on a ragged last launch (4·L);
+    * ``lookup_rho``'s float64 moment partials, six a chunk of
+      ``CHUNK_ROWS`` rows and target where a row has more than one chunk
+      (48·nch·Nt), and its ρ row (4·Nt).
+
+    The sum is above what the card shows (``tests/test_torch_gpu.py``
+    holds one launch's peak under it). The targets' transposed copy is
+    one a call, not a library, and is not counted.
+    """
+    Lp = num_embedded(L, E, tau)
+    if not kernel:
+        return 4 * Lp * Lp
+    nch = -(-pred_rows(L, E, tau, Tp) // CHUNK_ROWS)
+    partials = 48 * nch * Nt if nch > 1 else 0
+    return 28 * Lp * k + 16 * Lp + 4 * L + partials + 4 * Nt
+
+
+def direct_batch_libs(Nl: int, L: int, Nt: int, *, E: int, tau: int,
+                      Tp: int, k: int, impl: str,
+                      device: torch.device | str,
+                      batch_libs: int | None = None,
+                      budget_mb: float | None = None) -> int:
+    """B of the direct engine for Nl libraries of length L against Nt
+    targets: ``batch_libs`` where given, else ``auto_batch_libs`` over
+    ``direct_batch_bytes`` of the path a launch on ``device`` takes
+    (``ops.kernel_path``); clamped to [1, Nl]. Every caller of the direct
+    engine sizes its launches here."""
+    if batch_libs is None:
+        per = direct_batch_bytes(L, Nt, E=E, tau=tau, Tp=Tp, k=k,
+                                 kernel=ops.kernel_path(device, impl))
+        batch_libs = auto_batch_libs(num_embedded(L, E, tau), Nl, budget_mb,
+                                     device=device, per_series_bytes=per)
+    B = max(1, min(int(batch_libs), Nl))
+    telemetry.gauge("edm_batch_libs_effective").set(B)
+    return B
 
 
 def post_lookup_rho(targets, d, i, *, rows, off, impl, Yt=None):
@@ -331,21 +385,20 @@ def ccm_group_batched(libs: torch.Tensor, targets: torch.Tensor, *, E: int,
     """Library-batched CCM block → (Nl, Nt) ρ (host ndarray).
 
     The library axis is cut into ceil(Nl/B) batches of B series
-    (``batch_libs``, or ``auto_batch_libs``'s memory rule), each one
+    (``batch_libs``, or ``direct_batch_libs``' memory rule), each one
     launch of the kNN kernel plus the fused-ρ stage, double-buffered
     against host assembly. Results are bit-invariant in B.
     """
     if targets.ndim == 1:
         targets = targets[None, :]
     Nl = libs.shape[0]
-    Lp = num_embedded(libs.shape[-1], E, tau)
     if Nl == 0:
         return np.zeros((0, targets.shape[0]), np.float32)
-    B = batch_libs if batch_libs is not None else auto_batch_libs(
-        Lp, Nl, budget_mb, device=libs.device)
-    B = max(1, min(int(B), Nl))
-    telemetry.gauge("edm_batch_libs_effective").set(B)
     kk = E + 1 if k is None else int(k)
+    B = direct_batch_libs(Nl, libs.shape[-1], targets.shape[0], E=E,
+                          tau=tau, Tp=Tp, k=kk, impl=impl,
+                          device=libs.device, batch_libs=batch_libs,
+                          budget_mb=budget_mb)
     launch = make_group_launch(libs, targets, E=E, tau=tau, Tp=Tp, k=kk,
                                impl=impl)
     return drive_batched(Nl, B, launch)

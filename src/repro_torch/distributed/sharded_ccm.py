@@ -41,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import telemetry
-from repro_torch.core.ccm import (auto_batch_libs, ccm_convergence_caps,
+from repro_torch.core.ccm import (ccm_convergence_caps, direct_batch_libs,
                                   normalize_lib_sizes, pad_batch,
                                   post_lookup_rho)
 from repro_torch.core.embedding import embed_offset, num_embedded, pred_rows
@@ -384,15 +384,14 @@ def _local_block(libs, tgts, *, E, tau, Tp, rows, off, hard_max, impl,
     """ρ tile for (local libraries × local targets): (nl, nt).
 
     The local engine on the rank's block: libraries B at a time through
-    ``ops.all_knn_batch`` (B from ``core.ccm.auto_batch_libs``' memory
+    ``ops.all_knn_batch`` (B from ``core.ccm.direct_batch_libs``' memory
     rule), then the fused lookup-ρ of each batch. Rows are bit-invariant
     in B; nothing leaves the rank.
     """
     nl = libs.shape[0]
-    Lp = num_embedded(libs.shape[-1], E, tau)
-    B = batch_libs if batch_libs is not None else auto_batch_libs(
-        Lp, nl, budget_mb, device=libs.device)
-    B = max(1, min(int(B), nl))
+    B = direct_batch_libs(nl, libs.shape[-1], tgts.shape[0], E=E, tau=tau,
+                          Tp=Tp, k=E + 1, impl=impl, device=libs.device,
+                          batch_libs=batch_libs, budget_mb=budget_mb)
     nb = -(-nl // B)
     # ragged final batch: repeat real series, drop their rows below
     libs = pad_batch(libs, nb * B)

@@ -37,8 +37,12 @@ class EDMConfig:
     batch_libs: library batch size B of the all-pairs engine; ``None``
               sizes it to ``batch_budget_mb``. Results are bit-invariant
               in B.
-    batch_budget_mb: memory budget (MB) of that rule; ``None`` picks the
-              device default (32 on the CPU, 256 on the GPU).
+    batch_budget_mb: memory budget (MB) of that rule, counting what one
+              launch holds in flight on the path it takes (the direct
+              engine: ``core.ccm.direct_batch_bytes``, a library's
+              (Lp, Lp) distances on the plain path, its (Lp, k) tables,
+              weights and ρ partials on the kernel path); ``None`` picks
+              the device default (32 on the CPU, 256 on the GPU).
     impl:     "auto" (kernels on CUDA tensors, plain versions on the CPU)
               or "ref" (plain versions everywhere).
     device:   torch device of the session's tensors. "cuda" (default)

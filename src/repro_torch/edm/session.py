@@ -48,8 +48,9 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core.ccm import (auto_batch_libs, ccm_convergence_caps,
-                                  drive_batched, make_group_launch,
-                                  normalize_lib_sizes, pad_batch)
+                                  direct_batch_libs, drive_batched,
+                                  make_group_launch, normalize_lib_sizes,
+                                  pad_batch)
 from repro_torch.core.embedding import num_embedded
 from repro_torch.core.simplex import optimal_E_batch, simplex_skill
 from repro_torch.core.smap_engine import smap_group, smap_theta_sweep
@@ -695,9 +696,10 @@ class EDM:
             return launch, max(1, min(int(B), N))
         launch = make_group_launch(X, tgts, E=E, tau=c.tau, Tp=c.Tp_cross,
                                    k=c.k_for(E), impl=self._impl)
-        B = c.batch_libs or auto_batch_libs(Lp, N, c.batch_budget_mb,
-                                            device=self.device)
-        return launch, max(1, min(int(B), N))
+        return launch, direct_batch_libs(
+            N, self.data.L, len(members), E=E, tau=c.tau, Tp=c.Tp_cross,
+            k=c.k_for(E), impl=self._impl, device=self.device,
+            batch_libs=c.batch_libs, budget_mb=c.batch_budget_mb)
 
     def _xmap_local(self, method, groups, theta, run_dir=None,
                     E_opt=None) -> np.ndarray:

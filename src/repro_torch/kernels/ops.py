@@ -43,9 +43,10 @@ def check_impl(impl: str) -> str:
     return impl
 
 
-def _kernel_path(t: torch.Tensor, impl: str) -> bool:
-    """Does this call launch the CUDA kernel (else the plain version)?"""
-    return check_impl(impl) == "auto" and t.device.type != "cpu"
+def kernel_path(device: torch.device | str, impl: str) -> bool:
+    """Does a call on ``device`` launch the CUDA kernel (else the plain
+    version)?"""
+    return check_impl(impl) == "auto" and torch.device(device).type != "cpu"
 
 
 def _tel(op: str) -> None:
@@ -68,7 +69,7 @@ def pairwise_distances(x: torch.Tensor, *, E: int, tau: int = 1,
     reference's ``impl="ref"`` ignores the variant; here each variant
     has its own plain version.)"""
     _check_variant(variant)
-    kernel = _kernel_path(x, impl)
+    kernel = kernel_path(x.device, impl)
     _tel("pairwise_distances")
     if variant == "mxu":
         fn = (pairwise_dist.pairwise_distances_mxu if kernel
@@ -83,7 +84,7 @@ def topk_select(D: torch.Tensor, *, k: int, exclude_self: bool = True,
                 max_idx=None, impl: str = "auto"):
     """k nearest per row → (Euclidean dists, int32 idx), ascending
     (paper Alg. 2)."""
-    kernel = _kernel_path(D, impl)
+    kernel = kernel_path(D.device, impl)
     _tel("topk_select")
     if not kernel:
         return _ref.topk_select(D, k=k, exclude_self=exclude_self,
@@ -97,7 +98,7 @@ def topk_select_sizes(D: torch.Tensor, *, k: int, max_idxs,
     """k nearest per row under every ascending prefix cap in one pass →
     (S, Lp, k) each; dist = inf / idx = ``ref.PAD_IDX`` where a cap leaves
     fewer than k candidates. The CCM convergence-sweep primitive."""
-    kernel = _kernel_path(D, impl)
+    kernel = kernel_path(D.device, impl)
     _tel("topk_select_sizes")
     if not kernel:
         return _ref.topk_select_sizes(D, k=k, max_idxs=max_idxs,
@@ -123,7 +124,7 @@ def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
         raise ValueError("fused=True computes the strict-chain ('vpu') "
                          f"distances; got variant={variant!r}")
     k = E + 1 if k is None else int(k)
-    kernel = _kernel_path(x, impl)
+    kernel = kernel_path(x.device, impl)
     _tel("all_knn")
     if fused:
         fn = knn_fused.all_knn_fused if kernel else _ref.all_knn
@@ -137,7 +138,7 @@ def all_knn(x: torch.Tensor, *, E: int, tau: int = 1, k: int | None = None,
 def lookup(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
            offset: int = 0, impl: str = "auto") -> torch.Tensor:
     """Batched simplex lookup → (N, rows) predictions (paper Alg. 3)."""
-    kernel = _kernel_path(Y, impl)
+    kernel = kernel_path(Y.device, impl)
     _tel("lookup")
     if not kernel:
         return _ref.lookup(Y, idx, w, offset=offset)
@@ -153,7 +154,7 @@ def all_knn_multi_e(X: torch.Tensor, *, E_max: int, tau: int = 1,
     panel → (N, E_max, L, k_max) (one kernel launch for the panel).
     Padding is inf / -1; ``[.., E-1, :Lp_E, :k_E]`` is the table at E.
     """
-    kernel = _kernel_path(X, impl)
+    kernel = kernel_path(X.device, impl)
     _tel("all_knn_multi_e")
     if not kernel:
         return _ref.all_knn_multi_e(X, E_max=E_max, tau=tau, k=k,
@@ -179,7 +180,7 @@ def master_append(X: torch.Tensor, dists: torch.Tensor, idx: torch.Tensor,
     tables, bit-identical to a cold ``all_knn_multi_e`` on ``X``; one
     kernel launch for the whole panel on the GPU.
     """
-    kernel = _kernel_path(X, impl)
+    kernel = kernel_path(X.device, impl)
     _tel("master_append")
     fn = knn_append.master_append if kernel else _ref.master_append
     if X.ndim == 1:
@@ -193,7 +194,7 @@ def all_knn_batch(X: torch.Tensor, *, E: int, tau: int = 1,
                   max_idx=None, impl: str = "auto"):
     """All-kNN tables for B library series in one launch → (B, Lp, k),
     bit-invariant in B."""
-    kernel = _kernel_path(X, impl)
+    kernel = kernel_path(X.device, impl)
     _tel("all_knn_batch")
     if not kernel:
         return _ref.all_knn_batch(X, E=E, tau=tau, k=k,
@@ -207,7 +208,7 @@ def lookup_targets(Y: torch.Tensor, *, impl: str = "auto"):
     padded), for a caller that launches several times against one panel
     to make once and pass as ``Yt``; None where no kernel reads them (the
     plain versions, or a single target)."""
-    if not _kernel_path(Y, impl) or Y.shape[0] == 1:
+    if not kernel_path(Y.device, impl) or Y.shape[0] == 1:
         return None
     return _lookup_k.transpose_targets(Y)
 
@@ -221,7 +222,7 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
     row independent of B. ``Yt``: ``lookup_targets(Y)``, made once per
     panel by a caller that launches repeatedly (optional).
     """
-    kernel = _kernel_path(Y, impl)
+    kernel = kernel_path(Y.device, impl)
     _tel("lookup_rho")
     if not kernel:
         if idx.ndim == 2:
@@ -236,7 +237,7 @@ def lookup_rho(Y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
 def lookup_rho_own(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, *,
                    offset: int = 0, impl: str = "auto") -> torch.Tensor:
     """Table b against its own series X[b] only → (B,) ρ (one launch)."""
-    kernel = _kernel_path(X, impl)
+    kernel = kernel_path(X.device, impl)
     _tel("lookup_rho")
     if not kernel:
         return _ref.lookup_rho_own(X, idx, w, offset=offset)
@@ -256,7 +257,7 @@ def smap_gram(x: torch.Tensor, Y: torch.Tensor, *, E: int, tau: int = 1,
     memory; the plain version holds one (rows, rows) W at a time.
     """
     thetas = tuple(float(t) for t in thetas)
-    kernel = _kernel_path(x, impl)
+    kernel = kernel_path(x.device, impl)
     _tel("smap_gram")
     fn = _smap_gram_k.smap_gram if kernel else _smap_gram_k.plain
     return fn(x, Y, E=E, tau=tau, Tp=Tp, thetas=thetas,

@@ -263,3 +263,61 @@ def test_ccm_group_from_master_matches_reference_and_engine(sessions, E):
     ik, _ = _derive_idx(iM[:, :Lp], k=E + 1, max_idx=Lp - 1)
     jik, _ = jplan._derive_idx(jiM[:, :Lp], k=E + 1, max_idx=Lp - 1)
     np.testing.assert_array_equal(ik.numpy(), np.asarray(jik))
+
+
+# ------------------------------------------------- the direct engine's B
+# kEDM's Table-1 shapes at E 3 (k 4): Fly80XY 82 × 10,608, Subject6's cell
+# 4,096 × 3,780. The kernel path is chosen by the device and impl alone,
+# so a "cuda" device string reaches its model without a card.
+
+FLY, SUBJECT6 = (82, 10_608), (4_096, 3_780)
+
+
+def _direct_B(shape, **kw):
+    from repro_torch.core.ccm import direct_batch_libs
+    N, L = shape
+    return direct_batch_libs(N, L, N, E=3, tau=1, Tp=0, k=4, **kw)
+
+
+@pytest.mark.parametrize("shape,B,launches", [(FLY, 82, 1),
+                                              (SUBJECT6, 76, 54)],
+                         ids=["fly80xy", "subject6"])
+def test_direct_batch_on_the_kernel_path_counts_its_tables(shape, B,
+                                                           launches):
+    from repro_torch.core.ccm import direct_batch_bytes
+    got = _direct_B(shape, impl="auto", device="cuda")
+    assert (got, -(-shape[0] // got)) == (B, launches)
+    # the (Lp, k) tables and temporaries, far under one (Lp, Lp) matrix
+    per = direct_batch_bytes(shape[1], shape[0], E=3, tau=1, Tp=0, k=4,
+                             kernel=True)
+    Lp = shape[1] - 2
+    assert 1_000_000 < per < 4 * Lp * Lp // 16
+
+
+@pytest.mark.parametrize("device,impl", [("cpu", "auto"), ("cpu", "ref"),
+                                         ("cuda", "ref")])
+@pytest.mark.parametrize("shape,B", [(FLY, 1), (SUBJECT6, 4)],
+                         ids=["fly80xy", "subject6"])
+def test_direct_batch_on_the_plain_path_keeps_the_distance_rule(
+        shape, B, device, impl):
+    from repro_torch.core.ccm import auto_batch_libs
+    Lp = shape[1] - 2
+    assert _direct_B(shape, impl=impl, device=device, budget_mb=256) == B
+    assert (_direct_B(shape, impl=impl, device=device)
+            == auto_batch_libs(Lp, shape[0], device=device))
+
+
+@pytest.mark.parametrize("device,impl", [("cuda", "auto"), ("cpu", "auto"),
+                                         ("cuda", "ref")])
+def test_direct_batch_explicit_batch_libs_wins(device, impl):
+    for asked, want in ((1, 1), (7, 7), (10_000, SUBJECT6[0])):
+        assert _direct_B(SUBJECT6, impl=impl, device=device,
+                         batch_libs=asked, budget_mb=1) == want
+
+
+@pytest.mark.parametrize("device,impl", [("cuda", "auto"), ("cpu", "auto")],
+                         ids=["kernel", "plain"])
+def test_direct_batch_grows_with_the_budget(device, impl):
+    Bs = [_direct_B(SUBJECT6, impl=impl, device=device, budget_mb=mb)
+          for mb in (16, 64, 256, 1024, 4096)]
+    assert Bs == sorted(Bs) and Bs[0] < Bs[-1]

@@ -111,6 +111,31 @@ def test_session_on_gpu_matches_plain_session():
     np.testing.assert_allclose(rho_k, rho_p, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("N,L", [(12, 6_000), (256, 1_200)],
+                         ids=["fly-like", "subject6-like"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_direct_launch_peak_within_its_batch_byte_model(N, L, ragged):
+    """One direct launch of B = N libraries allocates no more than B times
+    ``direct_batch_bytes``' kernel-path model plus the call's transposed
+    targets (a ragged launch pads a copy of its libraries)."""
+    from repro_torch.core.ccm import direct_batch_bytes, make_group_launch
+    from repro_torch.kernels.lookup import TARGET_TILE
+    X = _cuda_panel(N=N, L=L)
+    make_group_launch(X, X, E=3, tau=1, Tp=0, k=4, impl="auto")(0, N, N)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launch = make_group_launch(X, X, E=3, tau=1, Tp=0, k=4, impl="auto")
+    launch(0, N - int(ragged), N)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    yt = 4 * L * -(-N // TARGET_TILE) * TARGET_TILE
+    per = direct_batch_bytes(L, N, E=3, tau=1, Tp=0, k=4, kernel=True)
+    print(f"N {N} L {L} ragged {ragged}: peak {peak} B, "
+          f"{(peak - yt) / N:.0f} a library, model {per}")
+    assert 0 < peak <= N * per + yt
+
+
 def _ties_series(L=400, seed=1):
     """A series with a repeated stretch: exact distance ties."""
     if not torch.cuda.is_available():

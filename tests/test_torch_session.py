@@ -308,3 +308,46 @@ def test_submit_panel_smap_flush_matches_reference_and_sessions():
         _assert_smap_close(res[t].smap, jres[jt].smap, thetas)
     with pytest.raises(ValueError, match="unknown task"):
         sess.submit_panel(a, tasks=("nope",))
+
+
+@pytest.mark.parametrize("path,budget_mb,B", [("kernel", 0.1, 3),
+                                              ("plain", 0.4, 2)])
+@pytest.mark.parametrize("caller", ["session", "ccm_group_batched",
+                                    "local_block"])
+def test_direct_engine_callers_pick_one_batch(monkeypatch, caller, path,
+                                              budget_mb, B):
+    """The session's direct branch, ``ccm_group_batched`` and the sharded
+    engine's ``_local_block`` size their launches by one rule: on the CPU,
+    with the rule asked for the kernel path's model where ``path`` says."""
+    from repro_torch.core import ccm
+    from repro_torch.core.embedding import embed_offset, pred_rows
+    from repro_torch.distributed import sharded_ccm
+    from repro_torch.edm import session as session_mod
+
+    panel = _panel(4)
+    N, L = panel.shape
+    real, seen = ccm.direct_batch_libs, []
+
+    def spy(*args, device, **kw):
+        seen.append(real(*args, device="cuda" if path == "kernel"
+                         else device, **kw))
+        return seen[-1]
+
+    for mod in (ccm, sharded_ccm, session_mod):
+        monkeypatch.setattr(mod, "direct_batch_libs", spy)
+    X = torch.from_numpy(panel)
+    knn = telemetry.counter("edm_ops_all_knn_batch_calls")
+    before = knn.value
+    if caller == "session":
+        EDM(panel, E=3, cache=False, batch_budget_mb=budget_mb,
+            device="cpu").xmap()
+    elif caller == "ccm_group_batched":
+        ccm_group_batched(X, X, E=3, budget_mb=budget_mb)
+    else:
+        sharded_ccm._local_block(
+            X, X, E=3, tau=1, Tp=0, rows=pred_rows(L, 3, 1, 0),
+            off=embed_offset(3, 1, 0), hard_max=L - 3, impl="auto",
+            budget_mb=budget_mb)
+    assert seen == [B]
+    assert telemetry.gauge("edm_batch_libs_effective").value == B
+    assert knn.value - before == -(-N // B)
