@@ -636,7 +636,13 @@ class EDM:
         otherwise the direct ``all_knn_batch`` engine runs.
         ``method="smap"`` swaps both for the batched S-Map engine
         (``core.smap_group``) at locality ``theta`` (default
-        ``config.theta``).
+        ``config.theta``). Where float32 cannot solve a library's ridge
+        systems — a rank-deficient Gram (a period-3 series at E 3) or
+        repeated points (a periodic orbit) — those systems are solved
+        again from the series in float64, so the library's row is the
+        float64 S-Map's (its own entry 1.0 for a period-3 series), where
+        the JAX reference returns ρ 0 on a failed factorization
+        (``core.smap_engine``).
 
         ``run_dir=`` makes the run fault-tolerant and resumable
         (``edm.runner``): every engine tile is journaled under that
